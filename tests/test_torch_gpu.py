@@ -1,0 +1,79 @@
+"""Tests of the port that need the card (marked ``gpu``; each skips where
+``torch.cuda.is_available()`` is false).  This file imports no JAX, so it
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from unsupervised_anomaly_detection_brain_mri_tpu_torch import Config, Options
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import make_phantom
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
+    AnomalyDetector,
+    save_calibration,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median as M
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+    get_trainer,
+)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _vol(shape, seed, tied):
+    rng = np.random.default_rng(seed)
+    if tied:  # repeated values, exact zeros and negatives
+        v = (np.floor(rng.uniform(size=shape) * 9) / 8.0 - 0.5)
+        return (v * (rng.uniform(size=shape) > 0.4)).astype(np.float32)
+    return rng.uniform(size=shape).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("shape", [(110, 128, 128), (7, 37, 45), (2, 1, 5),
+                                   (1, 1, 1)])
+def test_cuda_kernel_equals_plain(cuda, shape, tied):
+    vol = torch.from_numpy(_vol(shape, 5, tied)).to(cuda)
+    before = M.LAUNCHES
+    got = M.median_filter_3d_auto(vol, 5)
+    torch.cuda.synchronize()
+    assert M.LAUNCHES == before + 1
+    assert torch.equal(got, M.median_filter_3d(vol))
+
+
+@pytest.mark.gpu
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    vol = torch.rand(4, 8, 8, device=cuda)
+    for bad in (vol.double(), vol[None], vol.transpose(1, 2)):
+        with pytest.raises(ValueError):
+            M.median_filter_3d_cuda(bad)
+    with pytest.raises(ValueError):
+        M.median_filter_3d_auto(vol, 3)
+
+
+@pytest.mark.gpu
+def test_detect_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = Config(trainer="AE", model="autoencoder", outputWidth=32,
+                 outputHeight=32, zDim=16, compute_dtype="float32")
+    trainer = get_trainer("AE")(cfg, workdir=str(tmp_path))
+    trainer.init_state()
+    trainer.save_checkpoint()
+    save_calibration(str(tmp_path), 0.1, 0.0,
+                     Options(erosionIterations=1, minLesionSize=2), "phantom")
+    vol = make_phantom(np.random.default_rng(0), 32, 12, True)["volume"]
+    res = {dev: AnomalyDetector.from_workdir(str(tmp_path), device=dev)
+           .detect(vol) for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(res["cuda"]["anomaly_map"],
+                               res["cpu"]["anomaly_map"], atol=1e-5, rtol=0)
+    near = np.abs(res["cpu"]["anomaly_map"] - 0.1) <= 1e-5
+    assert not ((res["cuda"]["mask"] != res["cpu"]["mask"]) & ~near).any()
