@@ -77,3 +77,66 @@ def test_detect_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
                                res["cpu"]["anomaly_map"], atol=1e-5, rtol=0)
     near = np.abs(res["cpu"]["anomaly_map"] - 0.1) <= 1e-5
     assert not ((res["cuda"]["mask"] != res["cpu"]["mask"]) & ~near).any()
+
+
+def _small_cohort(with_lesions):
+    from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
+        SYNTH,
+        SyntheticOptions,
+    )
+
+    part = ({"TRAIN": 0.0, "VAL": 0.5, "TEST": 0.5} if with_lesions
+            else {"TRAIN": 0.7, "VAL": 0.3, "TEST": 0.0})
+    return SYNTH(SyntheticOptions(numPatients=4, imageSize=32, numSlices=16,
+                                  targetSize=32, withLesions=with_lesions,
+                                  seed=99 if with_lesions else 1234,
+                                  partition=part))
+
+
+@pytest.mark.gpu
+def test_fit_on_card_draws_dropout_on_the_card_and_resumes(cuda, tmp_path):
+    """The dropout generator lives on the trainer's device; its state is in
+    the checkpoint, so a resumed run continues the same stream."""
+    cfg = Config(trainer="AE", model="autoencoder", outputWidth=32,
+                 outputHeight=32, zDim=16, batchsize=8, numEpochs=1,
+                 dropout_rate=0.2)
+    t = get_trainer("AE")(cfg, workdir=str(tmp_path), device="cuda")
+    assert t.generator.device.type == "cuda"
+    t.fit(_small_cohort(False))
+    assert all(p.is_cuda for p in t.model.parameters())
+    state = t.generator.get_state()
+    again = get_trainer("AE")(cfg.replace(numEpochs=2),
+                              workdir=str(tmp_path), device="cuda")
+    again.init_state()
+    assert again.restore_training_checkpoint() == 1
+    assert torch.equal(again.generator.get_state(), state)
+    assert again.step == t.step
+
+
+@pytest.mark.gpu
+def test_evaluate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    from unsupervised_anomaly_detection_brain_mri_tpu.config import PathConfig
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
+        evaluate as E,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = Config(trainer="AE", model="autoencoder", outputWidth=32,
+                 outputHeight=32, zDim=16, compute_dtype="float32")
+    ds = _small_cohort(True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t = get_trainer("AE")(cfg, device=dev)
+        t.init_state()
+        before = M.LAUNCHES
+        res[dev] = E.evaluate(ds, t, Options(
+            paths=PathConfig(sample_dir=str(tmp_path / dev)),
+            erosionIterations=3), cfg)
+        launches = M.LAUNCHES - before
+        assert launches == (len(ds.patients_of("TEST")) if dev == "cuda"
+                            else 0)
+    for k in ("diff_AUC", "diff_AUPRC", "bestDiceScore"):
+        np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], rtol=1e-4)
+    np.testing.assert_allclose(res["cuda"]["diffs"], res["cpu"]["diffs"],
+                               atol=1e-5, rtol=0)

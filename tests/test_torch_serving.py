@@ -208,9 +208,12 @@ def test_infer_cli_matches_jax_cli(jax_workdir, tmp_path):
 
 
 def test_cli_training_subcommands_are_not_yet_ported(capsys):
-    assert cli.main(["--synthetic", "-t", "AE"]) == 2
     assert cli.main(["validate-data"]) == 2
     assert "not yet ported" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        cli.main(["--synthetic", "-t", "VAE", "-m",
+                  "variational_autoencoder", "-w", "32", "-g", "32",
+                  "-s", "0", "-e", "8", "--device", "cpu"])
 
 
 def test_cli_cuda_without_a_card_raises(converted, tmp_path):
@@ -223,7 +226,7 @@ def test_cli_cuda_without_a_card_raises(converted, tmp_path):
 
 
 _NO_JAX_SCRIPT = """
-import sys, tempfile
+import json, os, sys, tempfile
 import numpy as np
 import torch
 import unsupervised_anomaly_detection_brain_mri_tpu_torch as uad
@@ -235,6 +238,18 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import convert
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import metrics
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
+    engine, losses, state)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import evaluate
+wd = tempfile.mkdtemp()
+with open(wd + "/paths.json", "w") as f:
+    json.dump({"SAMPLEDIR": wd + "/samples"}, f)
+rc = cli.main(["--synthetic", "-w", "32", "-g", "32", "-z", "16", "-b", "8",
+               "-E", "1", "-s", "0", "-e", "16", "--precision", "float32",
+               "-O", "0.5", "--device", "cpu", "--workdir", wd + "/trained",
+               "-c", wd + "/paths.json"])
+assert rc == 0
 wd = tempfile.mkdtemp()
 cfg = uad.Config(outputWidth=32, outputHeight=32, zDim=16,
                  compute_dtype="float32")
@@ -253,7 +268,7 @@ sys.exit(1 if banned else 0)
 
 
 def test_port_imports_no_jax():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -7,8 +7,11 @@ uses only host-side modules (config, volume I/O, preprocessing, phantoms).
 Every kernel the JAX package wrote in Pallas is a hand-written kernel here
 (``csrc/``), and a CUDA tensor always reaches its kernel or raises.
 
-Ported so far: the ``AE`` serving path (``eval/inference.py``,
-``python -m unsupervised_anomaly_detection_brain_mri_tpu_torch infer``).
+Ported so far: the ``AE`` preset end to end: training (``train/``),
+``evaluate()`` with threshold transfer (``eval/evaluate.py``), serving
+(``eval/inference.py``) and the CLI
+(``python -m unsupervised_anomaly_detection_brain_mri_tpu_torch --preset AE
+--synthetic``; ``... infer``).
 """
 
 __version__ = "0.1.0"

@@ -1,15 +1,26 @@
-"""Command-line interface of the port: the ``infer`` subcommand.
+"""Command-line interface of the port: training with the evaluation
+protocol, and ``infer``.
 
-Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/cli.py::
-infer_main`: the same flags, outputs and ``report.json``, plus ``--device``
-(default ``cuda``; asking for a card that is not there raises, it does not
-fall back to the CPU).
+Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/cli.py`, with
+its parser, flag defaults, presets and ``build_dataset`` (imported from
+there: that module imports no JAX at module level).  Added: ``--device``
+(default ``cuda``; asking for a card that is not there raises, nothing
+falls back to the CPU).
 
-    python -m unsupervised_anomaly_detection_brain_mri_tpu_torch infer \\
+    python -m unsupervised_anomaly_detection_brain_mri_tpu_torch \
+        --preset AE --synthetic --device cuda
+    python -m unsupervised_anomaly_detection_brain_mri_tpu_torch infer \
         --workdir W -i scan.nii.gz
 
-Training and evaluation subcommands are not ported yet: they print so and
-exit with status 2.
+Training runs the JAX CLI's protocol: ``fit``, best-Dice ``evaluate()``
+without and with the hyperintensity prior, the threshold fitted on the
+lesion cohort's VAL split (written to ``calibration.json``), and
+``evaluate()`` again at that threshold; ``--metrics-out`` collects one
+JSON row per evaluation.  The port always runs the parity architecture:
+``--parity`` and ``--fast-convt-grad`` are accepted and change nothing;
+``--tpu-fast``, ``--s2d-stem``, ``--d2s-head``, ``--mesh-data`` and
+``--tb-every-n`` raise ``NotImplementedError``.  ``validate-data`` is not
+ported yet (exit status 2).
 """
 
 from __future__ import annotations
@@ -20,6 +31,19 @@ import os
 import sys
 from typing import List, Optional
 
+from unsupervised_anomaly_detection_brain_mri_tpu.cli import (
+    CLI_DEFAULTS,
+    build_dataset,
+    make_parser,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu.config import (
+    Config,
+    Dataset,
+    Optimizer,
+    Options,
+    PathConfig,
+    preset,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu.utils.misc import (
     json_sanitize,
 )
@@ -159,13 +183,196 @@ def infer_main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
+# flags of the JAX CLI that select something the port does not have yet
+_S2D_D2S = "the non-parity s2d/d2s options, ROADMAP.md queue item 3"
+_NOT_PORTED_FLAGS = (
+    ("tpu_fast", "--tpu-fast", _S2D_D2S),
+    ("s2d_stem", "--s2d-stem", _S2D_D2S),
+    ("d2s_head", "--d2s-head", _S2D_D2S),
+    ("mesh_data", "--mesh-data", "the parallel layer, ROADMAP.md queue "
+                                 "item 4"),
+    ("tb_every_n", "--tb-every-n", "TensorBoard logging"),
+)
+
+
+def train_main(argv: Optional[List[str]] = None) -> int:
+    """Train, evaluate and calibrate, like the JAX CLI's ``main``."""
+    parser = make_parser()
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="torch device to train and evaluate on "
+                             "(default: cuda)")
+    args = parser.parse_args(argv)
+    for attr, flag, what in _NOT_PORTED_FLAGS:
+        if getattr(args, attr):
+            raise NotImplementedError(
+                f"{flag} is not yet ported to the PyTorch package ({what})")
+
+    import torch
+
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError(f"device {args.device!r} requested but no CUDA "
+                           "device is available")
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        determine_threshold_on_labeled_patients,
+        evaluate,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
+        save_calibration,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    passed = {k for k, v in vars(args).items()
+              if v is not None and k in CLI_DEFAULTS}
+    for k, v in CLI_DEFAULTS.items():
+        if getattr(args, k, None) is None:
+            setattr(args, k, v)
+
+    paths = (PathConfig.from_json(args.config) if args.config
+             else PathConfig())
+    inter = tuple(int(v) for v in str(
+        args.intermediateResolutions).split(","))
+    overrides = dict(
+        trainer=args.trainer, model=args.model,
+        batchsize=args.batchsize, learningrate=args.lr,
+        numEpochs=args.numEpochs, zDim=args.zDim,
+        outputWidth=args.outputWidth, outputHeight=args.outputHeight,
+        optimizer=Optimizer(args.optimizer),
+        intermediateResolutions=inter,
+        compute_dtype=args.precision,
+        kappa=args.kappa, scale=args.scale, rho=args.rho,
+        dim_c=args.dim_c, dim_z=args.dim_z, dim_w=args.dim_w,
+        c_lambda=args.c_lambda, restore_lr=args.restore_lr,
+        restore_steps=args.restore_steps, tv_lambda=args.tv_lambda,
+        use_gradient_based_restoration=args.use_gradient_based_restoration,
+        fastConvTGrad=args.fast_convt_grad,
+    )
+    if args.preset:
+        # preset values win over flags the user did not pass
+        flag_to_field = {"lr": "learningrate"}
+        keep = {flag_to_field.get(flag, flag) for flag in passed}
+        config = preset(args.preset)
+        config = config.replace(
+            **{k: v for k, v in overrides.items() if k in keep})
+        config = config.replace(compute_dtype=args.precision,
+                                fastConvTGrad=args.fast_convt_grad)
+    else:
+        config = Config().replace(**overrides)
+    options = Options(paths=paths, sliceStart=args.slices_start,
+                      sliceEnd=args.slices_end,
+                      numMonteCarloSamples=args.numMonteCarloSamples,
+                      threshold=args.threshold,
+                      # 12 erosions at 128x128, scaled with the resolution
+                      erosionIterations=max(
+                          1, (12 * args.outputWidth) // 128),
+                      logEveryNBatches=args.log_every_n,
+                      streamPool=args.stream_pool)
+
+    trainer_cls = get_trainer(config.trainer)
+    train_ds_kind = Dataset.SYNTH if args.synthetic else Dataset.BRAINWEB
+    dataset_hc = build_dataset(options, config, train_ds_kind, "healthy")
+    workdir = args.workdir or os.path.join(
+        paths.checkpoint_dir, config.model,
+        config.model_dir(train_ds_kind.value))
+    os.makedirs(workdir, exist_ok=True)
+    trainer = trainer_cls(config, options, workdir=workdir,
+                          device=args.device)
+    trainer.fit(dataset_hc)
+
+    def eval_ds(kind: Dataset):
+        return build_dataset(options, config, kind, "pathological")
+
+    metric_rows: List[dict] = []
+
+    def record_metrics(res: dict, kind: Dataset, description: str) -> None:
+        if not args.metrics_out:
+            return
+        train_rows = [h for h in trainer.history
+                      if "train" in str(h.get("phase", "")).lower()]
+        final_train_loss = (float(train_rows[-1].get("loss", float("nan")))
+                            if train_rows else None)
+        metric_rows.append({
+            "preset": args.preset, "trainer": config.trainer,
+            "model": config.model, "dataset": kind.value,
+            "description": description,
+            "AUROC": res.get("diff_AUC"), "AUPRC": res.get("diff_AUPRC"),
+            "bestDice": res.get("bestDiceScore"),
+            "bestThreshold": res.get("bestThreshold"),
+            "DiceScore": res.get("DiceScore"),
+            "finalTrainLoss": final_train_loss,
+        })
+
+    def flush_metrics() -> None:
+        if args.metrics_out and metric_rows:
+            with open(args.metrics_out, "w") as f:
+                for row in metric_rows:
+                    f.write(json.dumps(json_sanitize(row)) + "\n")
+
+    if args.synthetic:
+        eval_kinds = [Dataset.SYNTH]
+    elif args.ds:
+        eval_kinds = [Dataset(args.ds)]
+    else:
+        eval_kinds = [Dataset.BRAINWEB, Dataset.MSLUB, Dataset.MSISBI2015]
+
+    def run_eval(kind: Dataset, desc: str, **option_changes) -> None:
+        res = evaluate(eval_ds(kind), trainer,
+                       options.replace(**option_changes), config,
+                       epoch=config.numEpochs, description=desc)
+        record_metrics(res, kind, desc)
+
+    if args.threshold is not None:
+        for kind in eval_kinds:
+            run_eval(kind, f"{kind.value}-thresh_{args.threshold}",
+                     threshold=args.threshold,
+                     applyHyperIntensityPrior=False)
+        flush_metrics()
+        return 0
+
+    if args.ds and not args.synthetic:
+        # -d without a threshold: one best-Dice evaluation with the prior
+        kind = eval_kinds[0]
+        run_eval(kind, f"{kind.value}_upperbound_bestdice_wPrior",
+                 threshold=None, applyHyperIntensityPrior=True)
+        flush_metrics()
+        return 0
+
+    # best-Dice upper bound, without and with the hyperintensity prior
+    for prior in (False, True):
+        for kind in eval_kinds:
+            run_eval(kind, f"{kind.value}_upperbound"
+                     + ("_wPrior" if prior else ""),
+                     threshold=None, applyHyperIntensityPrior=prior)
+
+    # threshold transfer from the first eval cohort's VAL split
+    transfer_options = options.replace(applyHyperIntensityPrior=False,
+                                       threshold=None)
+    best_dice, thresh = determine_threshold_on_labeled_patients(
+        [eval_ds(eval_kinds[0])], trainer, transfer_options, config)
+    print(f"Optimal threshold on MS Lesion Validation Set without optimal "
+          f"postprocessing: {thresh} (Dice-Score {best_dice})")
+    calib_path = save_calibration(
+        workdir, thresh, best_dice, transfer_options,
+        dataset=eval_kinds[0].value, epoch=config.numEpochs)
+    print(f"Calibration written to {calib_path}")
+    for kind in eval_kinds:
+        run_eval(kind, f"{kind.value}-VALthresh_{thresh:.5f}",
+                 threshold=thresh, applyHyperIntensityPrior=False)
+    flush_metrics()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "infer":
         return infer_main(argv[1:])
-    what = argv[0] if argv and not argv[0].startswith("-") else "training"
-    print(f"'{what}' is not yet ported to the PyTorch package (only 'infer' "
-          f"is); see ROADMAP.md, or use unsupervised_anomaly_detection_"
-          f"brain_mri_tpu", file=sys.stderr)
-    return 2
+    if argv and argv[0] == "validate-data":
+        print("'validate-data' is not yet ported to the PyTorch package; "
+              "see ROADMAP.md, or use unsupervised_anomaly_detection_brain_"
+              "mri_tpu", file=sys.stderr)
+        return 2
+    return train_main(argv)

@@ -1,1 +1,2 @@
-"""Serving: volume reconstruction, post-processing, the detector."""
+"""Evaluation and serving: reconstruction, post-processing, metrics,
+threshold transfer, the detector."""

@@ -1,4 +1,4 @@
-"""Flax parameter trees -> the port's ``state_dict``.
+"""Flax parameter trees and optax states -> the port's ``state_dict``s.
 
 Takes the JAX package's nested trees of arrays (``TrainState.params`` and
 ``TrainState.batch_stats``, as numpy) and returns a ``state_dict`` for the
@@ -16,6 +16,10 @@ module of the same name in this package.  Mappings:
 
 Transposed-convolution modules are recognised by ``convT`` in their name,
 as every one in the JAX zoo is named.
+
+``adam_state_from_optax`` carries an ``optax.adam`` state across the same
+way (moments with the parameters' layout transforms), so a JAX run taken
+after k steps continues in the port.
 """
 
 from __future__ import annotations
@@ -82,4 +86,44 @@ def params_from_flax(params: Mapping, batch_stats: Mapping
         key = "running_mean" if path[-1] == "mean" else "running_var"
         sd[f"{prefix}.{key}"] = _tensor(leaf)
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def _find_adam_state(opt_state: Any) -> Any:
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
+    state, which ``optax.adam`` nests in a chain tuple."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _find_adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_optax(opt_state: Any, model: torch.nn.Module,
+                          optimizer: torch.optim.Optimizer
+                          ) -> Dict[str, Any]:
+    """Convert an ``optax.adam`` state into a ``state_dict`` for
+    ``optimizer`` (a ``torch.optim.Adam`` over ``model.parameters()``).
+
+    ``mu``/``nu`` are parameter trees: they take the parameters' layout
+    transforms (HWIO -> OIHW, Dense transposed, ConvTranspose flipped) and
+    become ``exp_avg``/``exp_avg_sq``; ``count`` becomes every parameter's
+    ``step``.  The update that follows then equals optax's."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no optax Adam state (count, mu, nu) found")
+    mu = params_from_flax(adam.mu, {})
+    nu = params_from_flax(adam.nu, {})
+    names = [n for n, _ in model.named_parameters()]
+    if set(names) != set(mu):
+        raise ValueError(f"optax moments cover {sorted(mu)}, the model has "
+                         f"{sorted(names)}")
+    step = float(np.asarray(adam.count))
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {"step": torch.tensor(step, dtype=torch.float32),
+                       "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                   for i, n in enumerate(names)}
     return sd

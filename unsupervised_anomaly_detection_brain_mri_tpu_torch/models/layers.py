@@ -118,13 +118,30 @@ class Linear(nn.Linear):
 
 class Norm(nn.BatchNorm2d):
     """BatchNorm (eps 1e-3, Flax momentum 0.99).  Normalises in float32 and
-    returns the input's dtype, like Flax's BatchNorm with a compute dtype."""
+    returns the input's dtype, like Flax's BatchNorm with a compute dtype.
+
+    In train mode it normalises with the biased batch statistics and moves
+    ``running_mean``/``running_var`` towards the *biased* batch mean and
+    variance, as Flax does; ``nn.BatchNorm2d`` would move ``running_var``
+    towards the unbiased n/(n-1) variance and drift from the JAX package."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(torch.float32)).to(x.dtype)
+        xf = x.to(torch.float32)
+        if not self.training:
+            return super().forward(xf).to(x.dtype)
+        y = F.batch_norm(xf, None, None, self.weight, self.bias,
+                         training=True, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean,
+                                                     alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var,
+                                                    alpha=1.0 - BN_MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class UnifiedEncoder(nn.Module):

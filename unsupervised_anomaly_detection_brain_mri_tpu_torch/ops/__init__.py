@@ -1,1 +1,1 @@
-"""Ops of the port: post-processing and the hand-written kernels."""
+"""Ops of the port: post-processing, metrics and the hand-written kernels."""

@@ -1,1 +1,1 @@
-"""Trainers of the port (inference half so far)."""
+"""Trainers of the port (the ``AE`` trainer so far)."""
