@@ -35,10 +35,31 @@ last line):
   7. timings: warm train slices/s (CUDA events over one warm run of 100
      steps, the epoch's index matrix repeated) and warm ``evaluate()`` of
      the TEST cohort split into reconstruct, postprocess, curves and
-     components; a ``torch.profiler`` summary of the 100 steps and of one
-     ``evaluate()``, each with the device's busy share over its own
-     profiled span, is printed and kept in
-     ``build/chip_smoke_profile.txt``.
+     components; a profile of the 100 steps and of one ``evaluate()`` is
+     queued for phase 9;
+  8. the VAE family at full width (128x128, zDim 128, intermediate
+     resolution 8, bf16), each sub-phase with its wall time:
+     a. ``--preset VAE_You -E 1`` through the CLI: training, the lambda
+        sweep on the card (timed; ``tv_lambda.json`` with lambda in
+        [0, 1.9]), 3 evaluations and the threshold fit with batched
+        150-step restoration, then ``infer``; b. ``--preset VAE -n 4``: MC
+        evaluation and a served MC request whose epistemic variance is
+        finite, positive inside the eroded brainmask and 0 outside;
+        c. ``--preset ceVAE`` (gradient restoration) and warm train steps of
+        ``STEP_PRESETS`` with finite losses; in a, b and c the median is
+        launched exactly once per evaluated or served volume; d. card vs
+        CPU in float32 with the same weights and noise: VAE and ceVAE
+        forwards within TOL; the first FLIP_STEPS restoration steps
+        from one input on both, with the voxels where the gradients
+        differ and the subgradient sign flips that explain them; one
+        150-step ``VAE_You`` restoration of a 110-slice volume within
+        RESTORE_FLIP_STEPS x restore_lr; e. warm VAE train slices/s at
+        batch 8 and 128, the warm ``VAE_You`` ``evaluate()`` split and a
+        warm lambda sweep, with their profiles queued for phase 9;
+  9. profiles, after every timing (a ``torch.profiler`` session slows
+     every later launch): a ``torch.profiler`` summary of each queued run
+     with the device's busy share over its own profiled span, printed and
+     kept in ``build/chip_smoke_profile.txt``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -68,8 +89,16 @@ KINK_FLOOR = 3
 UPDATE_TOL = 0.25
 FREE_RUN_TOL = 1e-3
 TIMED_STEPS = 100
+STEP_PRESETS = ("VAE_Zimmerer", "ceVAE_Zimmerer", "AE_spatial", "CE")
+WARM_STEPS = 3
+# card-vs-CPU drift of the 150-step restoration, in restore_lr steps: a
+# sign flip of the L1 or TV subgradient moves a voxel by whole multiples
+# of restore_lr (5 measured on an H100, phase 8d)
+RESTORE_FLIP_STEPS = 10
+FLIP_STEPS = 3
 DEVICE = "cuda"
 PROFILE_OUT = os.path.join(ROOT, "build", "chip_smoke_profile.txt")
+PROFILES = []  # (key, fn, title) queued for phase 9
 
 
 def check(cond, msg):
@@ -217,7 +246,8 @@ def phase_serve(wd, scans):
         open_volume,
     )
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
-        _erode_and_postprocess,
+        _eroded_mask,
+        _postprocess,
         _reconstruct_volume,
         _zoom_volume,
     )
@@ -288,8 +318,9 @@ def phase_serve(wd, scans):
         torch.cuda.synchronize()
 
     def post():
-        state["diff"] = _erode_and_postprocess(
-            state["x"], state["rec"], state["skm"], state["q"], o)
+        state["diff"] = _postprocess(
+            state["x"], state["rec"], _eroded_mask(state["skm"], o),
+            state["q"], o)
         torch.cuda.synchronize()
 
     def cc():
@@ -344,9 +375,9 @@ def phase_card_vs_cpu(wd, scans):
     return map_err
 
 
-def lesion_cohort():
+def lesion_cohort(name="AE"):
     """The CLI's lesioned synthetic cohort (``build_dataset``) and the
-    options and config the CLI builds for ``--preset AE --synthetic``."""
+    options and config the CLI builds for ``--preset <name> --synthetic``."""
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import (
         Dataset,
         Options,
@@ -354,7 +385,7 @@ def lesion_cohort():
         preset,
     )
 
-    config = preset("AE")
+    config = preset(name)
     options = Options()
     return (config, options,
             build_dataset(options, config, Dataset.SYNTH, "healthy"),
@@ -704,13 +735,69 @@ def profile_summary(fn, title):
     return "\n".join(lines), busy
 
 
-def phase_timings(cudnn_tf32, matmul_tf32):
+def defer_profile(key, fn, title):
+    """Queue a profile of ``fn`` for phase 9.  A ``torch.profiler`` session
+    slows every later launch of the process (by 4-5 ms per training step on
+    the H100), so no timing may follow one: every profile runs after the
+    last timing."""
+    PROFILES.append((key, fn, title))
+
+
+def warm_train(trainer, pool, seed, label):
+    """Warm slices/s of ``trainer`` over one run of TIMED_STEPS steps (the
+    epoch's index matrix repeated, so the run's one index upload and one
+    host sync are spread thin), by CUDA events, median of 3 runs; a profile
+    of one more run is queued under ``label + " train"``."""
     import numpy as np
     import torch
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import (
-        PathConfig,
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
+        epoch_indices,
     )
+
+    bs = trainer.config.batchsize
+    n = int(pool["x"].shape[0])
+    idxs = epoch_indices(np.random.default_rng((seed + 1, 0)), n, bs)
+    reps = -(-TIMED_STEPS // idxs.shape[0])
+    steps = np.tile(idxs, (reps, 1))[:TIMED_STEPS]
+    trainer._run_epoch("TRAIN", pool, idxs[:10])  # warm-up
+    torch.cuda.synchronize()
+    run_ms, enqueue_ms = [], []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        # returns device tensors without a sync: the host's enqueue time
+        metrics = trainer._run_epoch("TRAIN", pool, steps)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        run_ms.append(start.elapsed_time(end))
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+          f"{label}: non-finite training metrics {metrics}")
+    ms = statistics.median(run_ms)
+    sps = steps.size / (ms / 1e3)
+    print(f"[timing] warm {label} training: {steps.shape[0]} steps x batch "
+          f"{bs} = {steps.size} slices in {ms:.3f} ms (CUDA events, median "
+          f"of 3 runs; each {[round(v, 3) for v in run_ms]}) -> {sps:.1f} "
+          f"slices/s, {ms / steps.shape[0]:.3f} ms per step; the host's "
+          f"enqueue of each run returned after "
+          f"{[round(v, 1) for v in enqueue_ms]} ms")
+    defer_profile(f"{label} train",
+                  lambda: trainer._run_epoch("TRAIN", pool, steps),
+                  f"{steps.shape[0]} warm {label} train steps (batch {bs})")
+    return sps
+
+
+def warm_evaluate(cohort, trainer, options, config, label):
+    """Warm ``evaluate()`` of the TEST cohort (host clock, median of 3)
+    split into reconstruct (or restoration), postprocess (erosion,
+    residual, prior, median), curves and components, each synchronised; the
+    rest is host work.  A profile of one more call is queued under
+    ``label + " evaluate"``."""
+    import torch
+
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
         evaluate as E,
     )
@@ -720,60 +807,20 @@ def phase_timings(cudnn_tf32, matmul_tf32):
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
         postprocess as P,
     )
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
-        epoch_indices,
-    )
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
-        get_trainer,
-    )
-
-    # the CLI's defaults again (phases 4 and 6 turned TF32 off)
-    torch.backends.cudnn.allow_tf32 = cudnn_tf32
-    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
-    config, options, healthy, cohort = lesion_cohort()
-    options = options.replace(
-        paths=PathConfig(sample_dir=os.path.join(ROOT, "build", "chip_smoke",
-                                                 "timing")),
-        threshold=None, applyHyperIntensityPrior=False)
-    trainer = get_trainer("AE")(config, options, device=DEVICE)
-    trainer.init_state()
-    pool = {"x": torch.from_numpy(np.asarray(healthy.slices("TRAIN"),
-                                             np.float32)).to(DEVICE)}
-    n = int(pool["x"].shape[0])
-    idxs = epoch_indices(np.random.default_rng((config.seed + 1, 0)), n,
-                         config.batchsize)
-    # one run of TIMED_STEPS steps: the epoch's index matrix repeated, so
-    # the run's one index upload and one host sync are spread thin
-    reps = -(-TIMED_STEPS // idxs.shape[0])
-    steps = np.tile(idxs, (reps, 1))[:TIMED_STEPS]
-    trainer._run_epoch("TRAIN", pool, idxs)  # warm-up
-    torch.cuda.synchronize()
-    run_ms, enqueue_ms = [], []
-    for _ in range(3):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        # returns device tensors without a sync: the host's enqueue time
-        trainer._run_epoch("TRAIN", pool, steps)
-        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        end.synchronize()
-        run_ms.append(start.elapsed_time(end))
-    ms = statistics.median(run_ms)
-    sps = steps.size / (ms / 1e3)
-    print(f"[timing] warm training: {steps.shape[0]} steps x batch "
-          f"{config.batchsize} = {steps.size} slices in {ms:.3f} ms "
-          f"(CUDA events, median of 3 runs; each {run_ms}) -> "
-          f"{sps:.1f} slices/s, {ms / steps.shape[0]:.3f} ms per step; the "
-          f"host's enqueue of each run returned after "
-          f"{[round(v, 1) for v in enqueue_ms]} ms")
-    train_prof, train_busy = profile_summary(
-        lambda: trainer._run_epoch("TRAIN", pool, steps),
-        f"{steps.shape[0]} warm train steps")
 
     parts = {"reconstruct": 0.0, "postprocess": 0.0, "curves": 0.0,
              "components": 0.0}
+    which = {"_reconstruct_volume": "reconstruct",
+             "_reconstruct_volume_group": "reconstruct",
+             "_eroded_mask": "postprocess", "_postprocess": "postprocess",
+             "anomaly_curve_summary": "curves",
+             "filter_small_components": "components",
+             "detection_counts_batch": "components"}
+    modules = {"anomaly_curve_summary": M, "filter_small_components": P,
+               "detection_counts_batch": P}
+    originals = {(modules.get(name, E), name): getattr(modules.get(name, E),
+                                                       name)
+                 for name in which}
 
     def timed(part, fn):
         def wrapper(*args, **kwargs):
@@ -785,19 +832,11 @@ def phase_timings(cudnn_tf32, matmul_tf32):
             return out
         return wrapper
 
-    originals = {(E, "_reconstruct_volume"): E._reconstruct_volume,
-                 (E, "_erode_and_postprocess"): E._erode_and_postprocess,
-                 (M, "anomaly_curve_summary"): M.anomaly_curve_summary,
-                 (P, "filter_small_components"): P.filter_small_components,
-                 (P, "detection_counts_batch"): P.detection_counts_batch}
     warm = E.evaluate(cohort, trainer, options, config)  # warm-up
     totals = []
     try:
-        for mod, name in originals:
-            part = {"_reconstruct_volume": "reconstruct",
-                    "_erode_and_postprocess": "postprocess",
-                    "anomaly_curve_summary": "curves"}.get(name, "components")
-            setattr(mod, name, timed(part, originals[(mod, name)]))
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, timed(which[name], fn))
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -810,21 +849,485 @@ def phase_timings(cudnn_tf32, matmul_tf32):
     split = {p: v / k for p, v in parts.items()}
     total = statistics.median(totals)
     spp = warm["slices_per_patient"]
-    print(f"[timing] warm evaluate() of the TEST cohort ({len(spp)} volumes,"
-          f" {sum(spp)} slices): {total:.1f} ms (host clock, median of {k}; each "
-          f"{[round(v, 1) for v in totals]}); mean split: "
+    print(f"[timing] warm {label} evaluate() of the TEST cohort ({len(spp)} "
+          f"volumes, {sum(spp)} slices): {total:.1f} ms (host clock, median "
+          f"of {k}; each {[round(v, 1) for v in totals]}); mean split: "
           + ", ".join(f"{p} {v:.1f} ms" for p, v in split.items())
           + f", host (load, zoom, quantile, artifacts) "
           f"{total - sum(split.values()):.1f} ms")
-    eval_prof, eval_busy = profile_summary(
-        lambda: E.evaluate(cohort, trainer, options, config),
-        "one warm evaluate() of the TEST cohort")
+    defer_profile(f"{label} evaluate",
+                  lambda: E.evaluate(cohort, trainer, options, config),
+                  f"one warm {label} evaluate() of the TEST cohort")
+    return total, split
+
+
+def timing_options(options):
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import (
+        PathConfig,
+    )
+
+    return options.replace(
+        paths=PathConfig(sample_dir=os.path.join(ROOT, "build", "chip_smoke",
+                                                 "timing")),
+        threshold=None, applyHyperIntensityPrior=False)
+
+
+def device_pool(dataset, masks=False):
+    import numpy as np
+    import torch
+
+    pool = {"x": torch.from_numpy(np.asarray(dataset.slices("TRAIN"),
+                                             np.float32)).to(DEVICE)}
+    if masks:
+        pool["mask"] = torch.from_numpy(np.asarray(
+            dataset.brainmasks("TRAIN"), np.float32)).to(DEVICE)
+    return pool
+
+
+def phase_timings(cudnn_tf32, matmul_tf32):
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    # the CLI's defaults again (phases 4 and 6 turned TF32 off)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    config, options, healthy, cohort = lesion_cohort()
+    options = timing_options(options)
+    trainer = get_trainer("AE")(config, options, device=DEVICE)
+    trainer.init_state()
+    sps = warm_train(trainer, device_pool(healthy), config.seed, "AE")
+    total, split = warm_evaluate(cohort, trainer, options, config, "AE")
+    return sps, total, split
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the VAE family at full width (128x128, zDim 128, intermediate
+# resolution 8, bf16), MC dropout, restoration
+
+
+def run_protocol(base, name, extra=()):
+    """``--preset <name> --synthetic --device cuda -E 1`` through the CLI:
+    train, evaluate twice, fit and write the threshold, evaluate at it.
+    The median kernel must be launched exactly once per evaluated volume
+    (3 x TEST + VAL, counted from the dataset), whatever the MC sample
+    count; losses finite, checkpoint, calibration and three finite
+    ``evalPC.json``."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    _, _, _, cohort = lesion_cohort(name)
+    n_test = len(cohort.patients_of("TEST"))
+    n_val = len(cohort.patients_of("VAL"))
+    expected = 3 * n_test + n_val
+    wd = os.path.join(base, name)
+    metrics_path = os.path.join(base, f"{name}.metrics.jsonl")
+    paths = os.path.join(base, f"{name}.paths.json")
+    samples = os.path.join(base, f"{name}.samples")
+    with open(paths, "w") as f:
+        json.dump({"SAMPLEDIR": samples,
+                   "CHECKPOINTDIR": os.path.join(base, "checkpoints")}, f)
+    median.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["--preset", name, "--synthetic", "--device", DEVICE,
+                   "-E", "1", "--workdir", wd, "--metrics-out", metrics_path,
+                   "-c", paths, *extra])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = median.LAUNCHES
+    check(rc == 0, f"{name}: training CLI exited {rc}")
+    check(launches == expected,
+          f"{name}: median kernel launched {launches} times for {expected} "
+          f"evaluated volumes (3 x {n_test} TEST + {n_val} VAL)")
+    with open(os.path.join(wd, "curves.json")) as f:
+        history = json.load(f)
+    losses = [h["loss"] for h in history]
+    check(losses and np.isfinite(losses).all(), f"{name}: losses {history}")
+    for file in ("torch/model.pt", "calibration.json", "config.json"):
+        check(os.path.isfile(os.path.join(wd, file)),
+              f"{name}: missing {file}")
+    evals = 0
+    for dirpath, _, files in os.walk(samples):
+        if "evalPC.json" in files:
+            with open(os.path.join(dirpath, "evalPC.json")) as f:
+                ev = json.load(f)
+            for k in ("diff_AUC", "diff_AUPRC", "bestDiceScore",
+                      "DiceScore"):
+                check(k in ev and np.isfinite(ev[k]),
+                      f"{dirpath}: {k} = {ev.get(k)}")
+            evals += 1
+    check(evals == 3, f"{name}: {evals} evalPC.json files, expected 3")
+    with open(metrics_path) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(wd, "calibration.json")) as f:
+        calib = json.load(f)
+    print(f"[{name}] CLI train (1 epoch) + 3 evaluations + threshold fit: "
+          f"{cli_s:.2f} s; losses {[round(v, 3) for v in losses]}; median "
+          f"kernel launches {launches} (3 x {n_test} TEST + {n_val} VAL); "
+          f"calibrated threshold {calib['threshold']:.5f} (VAL Dice "
+          f"{calib['bestDiceVAL']:.4f})")
+    for row in rows:
+        print(f"[{name}] {row['description']}: AUROC {row['AUROC']:.4f} "
+              f"AUPRC {row['AUPRC']:.4f} bestDice {row['bestDice']:.4f} "
+              f"Dice {row['DiceScore']:.4f}")
+    return wd, launches, calib
+
+
+def serve_once(wd, scan, out):
+    """``infer --device cuda`` of one scan on a trained workdir: one median
+    launch, the calibrated threshold."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    median.LAUNCHES = 0
+    rc = cli.main(["infer", "--workdir", wd, "-i", scan, "-o", out,
+                   "--device", DEVICE])
+    served = median.LAUNCHES
+    check(rc == 0 and served == 1,
+          f"infer on {wd}: rc {rc}, {served} launches")
+    with open(os.path.join(wd, "calibration.json")) as f:
+        calib = json.load(f)
+    stem = os.path.basename(scan)[:-len(".nii.gz")]
+    with open(os.path.join(out, f"{stem}.report.json")) as f:
+        report = json.load(f)
+    check(report["threshold"] == calib["threshold"],
+          "served threshold is not the calibrated one")
+    return served
+
+
+def phase_vae_you(base, scan):
+    """a. ``--preset VAE_You``: training, the lambda sweep on the card
+    (timed), 3 evaluations and the threshold fit with batched 150-step
+    restoration (one restoration per group of up to
+    ``restorationVolumeBatch`` volumes), then ``infer``."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
+        evaluate as E,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
+        base as B,
+    )
+
+    sweep, groups = {}, []
+    real_sweep = B.VAE_You.determine_best_lambda
+    real_group = E._reconstruct_volume_group
+
+    def timed_sweep(self, dataset):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep["lambda"] = real_sweep(self, dataset)
+        torch.cuda.synchronize()
+        sweep["s"] = time.perf_counter() - t0
+        return sweep["lambda"]
+
+    def counted_group(trainer, xs, *args, **kwargs):
+        groups.append(len(xs))
+        return real_group(trainer, xs, *args, **kwargs)
+
+    B.VAE_You.determine_best_lambda = timed_sweep
+    E._reconstruct_volume_group = counted_group
+    try:
+        wd, launches, _ = run_protocol(base, "VAE_You")
+    finally:
+        B.VAE_You.determine_best_lambda = real_sweep
+        E._reconstruct_volume_group = real_group
+    with open(os.path.join(wd, "tv_lambda.json")) as f:
+        lam = json.load(f)["tv_lambda_value"]
+    check("lambda" in sweep and lam == sweep["lambda"]
+          and 0.0 <= lam <= 1.9, f"tv_lambda.json {lam}, sweep {sweep}")
+    _, _, _, cohort = lesion_cohort("VAE_You")
+    n_test = len(cohort.patients_of("TEST"))
+    n_val = len(cohort.patients_of("VAL"))
+    check(sum(groups) == 3 * n_test + n_val and max(groups) > 1,
+          f"restoration groups {groups}")
+    served = serve_once(wd, scan, os.path.join(base, "served_VAE_You"))
+    print(f"[VAE_You] lambda sweep on the card: lambda {lam} in "
+          f"{sweep['s']:.2f} s (cold, host clock); restoration groups "
+          f"{groups} volumes; infer: {served} median launch")
+    return wd, launches + served, sweep["s"], lam
+
+
+def phase_vae_mc(base, scan):
+    """b. ``--preset VAE -n 4``: MC evaluation launches the median once per
+    volume; a served request under the calibrated 4 MC samples returns
+    an epistemic variance that is finite, positive somewhere inside the
+    eroded brainmask and 0 outside it."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
+        normalize_volume,
+        open_volume,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        _eroded_mask,
+        _zoom_volume,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
+        AnomalyDetector,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    wd, launches, calib = run_protocol(base, "VAE", ("-n", "4"))
+    check(calib["options"]["numMonteCarloSamples"] == 4,
+          f"calibration options {calib['options']}")
+    launches += serve_once(wd, scan, os.path.join(base, "served_VAE"))
+    det = AnomalyDetector.from_workdir(wd, device=DEVICE)
+    o, c = det.options, det.config
+    vol = np.asarray(open_volume(scan).data, np.float32)
+    median.LAUNCHES = 0
+    res = det.detect(vol)
+    check(median.LAUNCHES == 1, f"MC detect: {median.LAUNCHES} launches")
+    launches += median.LAUNCHES
+    x = _zoom_volume(normalize_volume(vol, method=o.normalizationMethod,
+                                      upper_percentile=o.upperpercentile),
+                     (c.outputHeight, c.outputWidth))
+    eroded = _eroded_mask(torch.from_numpy((x > 0.05).astype(np.float32))
+                          .to(DEVICE), o).cpu().numpy()
+    ev = res["epistemic_variance"]
+    check(np.isfinite(ev).all() and (ev[eroded] > 0).any()
+          and not ev[~eroded].any(),
+          "epistemic variance not finite, not positive inside or not 0 "
+          "outside the eroded mask")
+    print(f"[VAE -n 4] served MC request: epistemic variance max "
+          f"{float(ev.max()):.3e}, mean inside the eroded mask "
+          f"{float(ev[eroded].mean()):.3e}, positive at "
+          f"{int((ev[eroded] > 0).sum())} of {int(eroded.sum())} voxels "
+          f"inside, 0 outside; median launches {launches} in all")
+    return launches
+
+
+def phase_cevae_and_steps(base):
+    """c. ``--preset ceVAE`` (gradient restoration 0.1) through the
+    protocol, then warm train steps at full width of the presets that no
+    other phase trains: finite losses."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
+        count_params,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
+        epoch_indices,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    _, launches, _ = run_protocol(base, "ceVAE")
+    _, _, healthy, _ = lesion_cohort("CE")
+    for name in STEP_PRESETS:
+        config = preset(name)
+        trainer = get_trainer(config.trainer)(config, device=DEVICE)
+        trainer.init_state()
+        pool = device_pool(healthy, masks=trainer.needs_brainmask)
+        idxs = epoch_indices(np.random.default_rng(SEED),
+                             int(pool["x"].shape[0]), config.batchsize)
+        trainer._run_epoch("TRAIN", pool, idxs[:1])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer._run_epoch("TRAIN", pool,
+                                     idxs[1:1 + WARM_STEPS])
+        metrics = {k: float(v) for k, v in metrics.items()}
+        step_ms = (time.perf_counter() - t0) * 1e3 / WARM_STEPS
+        check(np.isfinite(list(metrics.values())).all(),
+              f"{name}: losses {metrics}")
+        print(f"[steps] {name} ({config.model}, {count_params(trainer.model):,}"
+              f" parameters, batch {config.batchsize}): {WARM_STEPS} warm "
+              f"steps, {step_ms:.2f} ms per step (host clock), mean "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(metrics.items())))
+    return launches
+
+
+def restoration_flips(card, cpu, x, noise, lam):
+    """The first FLIP_STEPS steps of the ``VAE_You`` restoration along the
+    CPU's trajectory: at each step both devices take one gradient from the
+    same input.  Counts the voxels where the sign of the residual
+    ``x - x_hat`` (the L1 term's subgradient) or of a TV difference of it
+    differs between the two, the voxels whose gradients differ by more
+    than a quarter of the smallest flip jump (min(1, 2 lambda)), how many
+    of those lie at or beside a flip, and how close their gradient
+    differences are to whole multiples of the jump: one update moves such
+    a voxel by that multiple of restore_lr."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.losses import (
+        total_variation,
+    )
+
+    def one_step(trainer, xin):
+        with torch.enable_grad():
+            xi = xin.detach().to(trainer.device).requires_grad_(True)
+            pixel, x_hat = trainer._restoration_fn(False)(
+                xi, noise.to(trainer.device))
+            total = torch.sum(pixel + lam * total_variation(xi - x_hat))
+            (g,) = torch.autograd.grad(total, xi)
+        return (xi - x_hat).detach().cpu(), g.cpu()
+
+    def signs_differ(a, b):
+        return torch.sign(a) != torch.sign(b)
+
+    unit = min(1.0, 2.0 * lam)
+    lr = cpu.config.restore_lr
+    xin = x.clone()
+    for step in range(1, FLIP_STEPS + 1):
+        (r_c, g_c), (r_p, g_p) = one_step(card, xin), one_step(cpu, xin)
+        pixel = signs_differ(r_c, r_p)
+        dh = signs_differ(r_c[:, 1:] - r_c[:, :-1], r_p[:, 1:] - r_p[:, :-1])
+        dw = signs_differ(r_c[:, :, 1:] - r_c[:, :, :-1],
+                          r_p[:, :, 1:] - r_p[:, :, :-1])
+        beside = pixel.clone()
+        beside[:, 1:] |= dh
+        beside[:, :-1] |= dh
+        beside[:, :, 1:] |= dw
+        beside[:, :, :-1] |= dw
+        dg = (g_c - g_p).abs()
+        big = dg > 0.25 * unit
+        k = dg[big] / unit
+        whole = int(((k - k.round()).abs() <= 0.05).sum())
+        rest = float(dg[~big].max()) if (~big).any() else 0.0
+        print(f"[vae-card-vs-cpu] restoration step {step} from one input: "
+              f"residual signs differ at {int(pixel.sum())} voxels, TV "
+              f"difference signs at {int(dh.sum())} + {int(dw.sum())}; "
+              f"{int(big.sum())} voxels with |dg| > {0.25 * unit:g}, "
+              f"{int((big & beside).sum())} of them at or beside a flip, "
+              f"|dg| / {unit:g} within 0.05 of a whole number at {whole} "
+              f"(values {sorted({round(float(v), 3) for v in k})[:8]}); "
+              f"max |dg| elsewhere {rest:.3e}, i.e. {lr * rest:.1e} per "
+              f"update")
+        xin = xin - lr * g_p
+
+
+def phase_vae_card_vs_cpu():
+    """d. Float32, TF32 off, the same seeded weights on the card and the
+    CPU, and the same noise drawn on the CPU: the VAE and ceVAE forwards of
+    8 slices within TOL; ``restoration_flips`` on a 110-slice volume; one
+    150-step ``VAE_You`` restoration of it within RESTORE_FLIP_STEPS x
+    restore_lr."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, healthy, cohort = lesion_cohort("VAE")
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.from_numpy(np.asarray(healthy.slices("VAL")[:8], np.float32))
+    noise = torch.randn((8, 128), generator=g)
+    for name in ("VAE", "ceVAE"):
+        config = preset(name, compute_dtype="float32")
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            t = get_trainer(config.trainer)(config, device=dev)
+            t.init_state()
+            with torch.no_grad():
+                out[dev] = t._call(t.model_inputs({"x": x.to(dev)}, False),
+                                   False, noise.to(dev))
+        errs = {k: float((out[DEVICE][k].cpu() - v).abs().max())
+                for k, v in out["cpu"].items()}
+        print(f"[vae-card-vs-cpu] {name} forward, 8 slices, float32: max|d| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(max(errs.values()) <= TOL, f"{name} forward differs: {errs}")
+    config = preset("VAE_You", compute_dtype="float32", tv_lambda=0.5)
+    vol = cohort.load_volume_and_groundtruth(cohort.patients_of("TEST")[0])[0]
+    xv = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        vol, (2, 0, 1))[..., None], np.float32))
+    noise = torch.randn((xv.shape[0], 128), generator=g)
+    trainers = {dev: get_trainer("VAE_You")(config, device=dev)
+                for dev in (DEVICE, "cpu")}
+    for t in trainers.values():
+        t.init_state()
+    restoration_flips(trainers[DEVICE], trainers["cpu"], xv, noise,
+                      config.tv_lambda)
+    out, secs = {}, {}
+    for dev, t in trainers.items():
+        t0 = time.perf_counter()
+        out[dev] = t.reconstruct_device(xv.to(dev), generator=noise.to(dev))[
+            "reconstruction"].cpu()
+        secs[dev] = time.perf_counter() - t0
+    d = (out[DEVICE] - out["cpu"]).abs()
+    moved = float((out["cpu"] - xv).abs().max())
+    steps = float(d.max()) / config.restore_lr
+    print(f"[vae-card-vs-cpu] VAE_You restoration of {tuple(xv.shape)}, "
+          f"{config.restore_steps} steps, float32, same noise: max|d| "
+          f"{float(d.max()):.3e} = {steps:.3f} x restore_lr, mean|d| "
+          f"{float(d.mean()):.3e}, voxels beyond 1e-4 {int((d > 1e-4).sum())}"
+          f" of {d.numel()} (bound {RESTORE_FLIP_STEPS} x restore_lr); the "
+          f"restoration moved the input by up to {moved:.3e}; card "
+          f"{secs[DEVICE]:.2f} s, CPU {secs['cpu']:.2f} s")
+    check(steps <= RESTORE_FLIP_STEPS,
+          f"restoration differs by {float(d.max())}")
+    return float(d.max())
+
+
+def phase_vae_timings(cudnn_tf32, matmul_tf32, vae_you_wd):
+    """e. Warm VAE train slices/s at batch 8 and 128; the warm VAE_You
+    ``evaluate()`` split; a warm lambda sweep; profiles."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import Config
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    config, options, healthy, cohort = lesion_cohort("VAE")
+    pool = device_pool(healthy)
+    sps = {}
+    for bs in (config.batchsize, 128):
+        t = get_trainer("VAE")(config.replace(batchsize=bs), device=DEVICE)
+        t.init_state()
+        sps[bs] = warm_train(t, pool, config.seed, f"VAE b{bs}")
+    with open(os.path.join(vae_you_wd, "config.json")) as f:
+        you_config = Config.from_json(f.read())
+    options = timing_options(options)
+    t = get_trainer("VAE_You")(you_config, options, workdir=vae_you_wd,
+                               device=DEVICE)
+    check(t.load_checkpoint() is not None, "VAE_You checkpoint")
+    total, split = warm_evaluate(cohort, t, options, you_config, "VAE_You")
+    t.workdir = None  # keep the workdir's tv_lambda.json
+    healthy = lesion_cohort("VAE_You")[2]
+    healthy.slices("VAL")  # phantoms are made on the first call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.determine_best_lambda(healthy)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    print(f"[timing] warm lambda sweep: {sweep_s:.2f} s (host clock)")
+    return sps, total, split, sweep_s
+
+
+def phase_profiles():
+    """9. The queued profiles, after every timing: printed, kept in
+    PROFILE_OUT; returns each one's device busy share by key."""
+    busy, texts = {}, []
+    for key, fn, title in PROFILES:
+        text, busy[key] = profile_summary(fn, title)
+        print(text)
+        texts.append(text)
     os.makedirs(os.path.dirname(PROFILE_OUT), exist_ok=True)
     with open(PROFILE_OUT, "w") as f:
-        f.write(train_prof + "\n\n" + eval_prof + "\n")
-    print(train_prof)
-    print(eval_prof)
-    return sps, total, split, train_busy, eval_busy
+        f.write("\n\n".join(texts) + "\n")
+    return busy
+
+
+def timed_phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s wall")
+    return out
 
 
 def main():
@@ -840,20 +1343,35 @@ def main():
     tf32 = (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32)
 
-    build_s = phase_device()
-    max_err, kernel_ms, plain_ms = phase_kernel()
+    build_s = timed_phase("1 device", phase_device)
+    max_err, kernel_ms, plain_ms = timed_phase("2 kernel", phase_kernel)
     base = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(base, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=base)
     try:
         wd, scans = make_workdir(tmp)
-        launches, detect_ms = phase_serve(wd, scans)
-        phase_card_vs_cpu(wd, scans)
+        launches, detect_ms = timed_phase("3 serve", phase_serve, wd, scans)
+        timed_phase("4 card vs cpu", phase_card_vs_cpu, wd, scans)
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
-        launches += phase_train_evaluate(tmp, scans[0])
-        train_rel = phase_train_card_vs_cpu()
-        sps, eval_ms, split, train_busy, eval_busy = phase_timings(*tf32)
+        launches += timed_phase("5 train + evaluate", phase_train_evaluate,
+                                tmp, scans[0])
+        train_rel = timed_phase("6 train card vs cpu",
+                                phase_train_card_vs_cpu)
+        sps, eval_ms, split = timed_phase("7 timings", phase_timings, *tf32)
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        you_wd, you_launches, sweep_cold_s, lam = timed_phase(
+            "8a VAE_You", phase_vae_you, tmp, scans[0])
+        launches += you_launches
+        launches += timed_phase("8b VAE -n 4", phase_vae_mc, tmp, scans[0])
+        launches += timed_phase("8c ceVAE + warm steps",
+                                phase_cevae_and_steps, tmp)
+        restore_err = timed_phase("8d VAE card vs cpu",
+                                  phase_vae_card_vs_cpu)
+        vae_sps, you_eval_ms, you_split, sweep_s = timed_phase(
+            "8e VAE timings", phase_vae_timings, *tf32, you_wd)
+        busy = timed_phase("9 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(os.path.join(base, "timing"), ignore_errors=True)
@@ -861,10 +1379,19 @@ def main():
     print(f"[summary] build {build_s:.2f} s, median kernel {kernel_ms:.4f} ms "
           f"vs plain {plain_ms:.4f} ms, warm detect {detect_ms:.3f} ms, "
           f"warm train {sps:.1f} slices/s (device busy "
-          f"{100 * train_busy:.1f} %), warm evaluate() "
+          f"{100 * busy['AE train']:.1f} %), warm evaluate() "
           f"{eval_ms:.1f} ms for the TEST cohort (device busy "
-          f"{100 * eval_busy:.1f} %), train card vs CPU max relative loss "
-          f"diff {train_rel:.3e}")
+          f"{100 * busy['AE evaluate']:.1f} %), train card vs CPU max "
+          f"relative loss diff {train_rel:.3e}")
+    print(f"[summary] VAE family: warm VAE train {vae_sps[8]:.1f} slices/s "
+          f"at batch 8 (device busy {100 * busy['VAE b8 train']:.1f} %), "
+          f"{vae_sps[128]:.1f} at batch 128 (busy "
+          f"{100 * busy['VAE b128 train']:.1f} %); VAE_You lambda {lam}, "
+          f"sweep {sweep_cold_s:.2f} s cold, {sweep_s:.2f} s warm; warm "
+          f"VAE_You evaluate() {you_eval_ms:.1f} ms for the TEST cohort ("
+          + ", ".join(f"{p} {v:.1f} ms" for p, v in you_split.items())
+          + f"; device busy {100 * busy['VAE_You evaluate']:.1f} %); "
+          f"150-step restoration card vs CPU max|d| {restore_err:.3e}")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

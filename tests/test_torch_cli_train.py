@@ -126,6 +126,46 @@ def test_resumed_run_trains_nothing_more(trained, capsys):
                for k, v in t.model.state_dict().items())
 
 
+@pytest.fixture(scope="module", params=["VAE_You", "ceVAE"])
+def trained_restoration(request, tmp_path_factory):
+    """``--preset VAE_You`` (lambda sweep, batched restoration) and
+    ``--preset ceVAE`` (gradient restoration 0.1) at 32x32, 1 epoch, 5
+    restoration steps."""
+    name = request.param
+    root = tmp_path_factory.mktemp(name)
+    paths = root / "paths.json"
+    paths.write_text(json.dumps({"SAMPLEDIR": str(root / "samples")}))
+    wd, metrics = root / "wd", root / "metrics.jsonl"
+    rc = cli.main(["--preset", name, "--synthetic", *SMALL, "-E", "1", "-S",
+                   "5", "--device", "cpu", "--workdir", str(wd),
+                   "--metrics-out", str(metrics), "-c", str(paths)])
+    assert rc == 0
+    return name, root, wd, metrics
+
+
+def test_restoration_presets_train_evaluate_and_calibrate(
+        trained_restoration):
+    name, root, wd, metrics = trained_restoration
+    config = Config.from_json((wd / "config.json").read_text())
+    assert (config.trainer, config.restore_steps) == (
+        {"VAE_You": "VAE_You", "ceVAE": "ceVAE"}[name], 5)
+    if name == "VAE_You":
+        lam = json.loads((wd / "tv_lambda.json").read_text())[
+            "tv_lambda_value"]
+        assert 0.0 <= lam <= 1.9
+    else:
+        assert config.use_gradient_based_restoration == 0.1
+        assert not (wd / "tv_lambda.json").exists()
+    calib = json.loads((wd / "calibration.json").read_text())
+    assert np.isfinite(calib["threshold"])
+    rows = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    assert len(rows) == 3
+    for r in rows:
+        assert r["trainer"] == config.trainer
+        for k in ("AUROC", "AUPRC", "bestDice", "finalTrainLoss"):
+            assert np.isfinite(r[k]), k
+
+
 def test_cuda_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -37,6 +37,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu.train import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
     evaluate as E,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
+    vae as port_vae,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
     params_from_flax,
 )
@@ -149,14 +152,18 @@ def test_threshold_transfer_matches_jax(pair, tmp_path):
 
 class _PortGoldenTrainer:
     """The golden harness's mock model behind the port's duck-typed
-    trainer contract (``device`` + ``reconstruct_device(x)``)."""
+    trainer contract (``device``, ``reconstruct_device(x)`` and
+    ``batched_volume_restoration()``)."""
 
     device = torch.device("cpu")
 
-    def reconstruct_device(self, x):
+    def reconstruct_device(self, x, dropout=False, generator=None):
         rec = GoldenTrainer().reconstruct(None, x.numpy())["reconstruction"]
         return {"reconstruction": torch.as_tensor(np.asarray(rec, np.float32),
                                                   device=x.device)}
+
+    def batched_volume_restoration(self):
+        return False
 
 
 def test_evaluate_matches_golden_host_recipe(tmp_path):
@@ -247,7 +254,126 @@ def test_evaluate_launches_one_median_per_volume(pair, tmp_path,
     assert calls == [(24, 64, 64)] * n
 
 
-def test_mc_dropout_evaluation_is_not_yet_ported(pair, tmp_path):
-    cfg, _, _, tt, ds = pair
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        E.evaluate(ds, tt, _options(tmp_path, numMonteCarloSamples=2), cfg)
+@pytest.fixture(scope="module")
+def vae_pairs():
+    """JAX VAEs at 64x64 with randomised BN statistics, dropout 0 and 0.5,
+    and the port's VAEs on the same converted weights."""
+    out = {}
+    for rate in (0.0, 0.5):
+        cfg = _cfg().replace(trainer="VAE", model="variational_autoencoder",
+                             dropout_rate=rate)
+        jt = jax_get_trainer("VAE")(cfg)
+        js = jt.init_state()
+        rng = np.random.default_rng(1)
+
+        def draw(path, a):
+            if jax.tree_util.keystr(path).endswith("['var']"):
+                return rng.uniform(0.5, 2.0, np.shape(a)).astype(np.float32)
+            return rng.normal(0.0, 0.3, np.shape(a)).astype(np.float32)
+
+        stats = jax.tree_util.tree_map_with_path(
+            draw, jax.device_get(js.batch_stats))
+        js = js.replace(batch_stats=jax.tree_util.tree_map(
+            jax.numpy.asarray, stats))
+        tt = get_trainer("VAE")(cfg, device="cpu")
+        tt.model.load_state_dict(params_from_flax(
+            jax.device_get(js.params), stats))
+        out[rate] = (cfg, jt, js, tt)
+    return out
+
+
+def test_mc_dropout_evaluation_matches_jax(pair, vae_pairs, tmp_path,
+                                           monkeypatch):
+    """MC evaluation (3 samples) of a VAE at dropout 0, with the same noise
+    given to both packages for each reconstruction call (a different draw
+    per call, so the samples differ): every output, the epistemic and
+    combined variances and their histogram agree."""
+    cfg, jt, js, tt = vae_pairs[0.0]
+    ds = pair[4]
+    calls = {"jax": 0, "torch": 0}
+
+    def noise(n, shape):
+        return np.random.default_rng(n).normal(size=shape).astype(np.float32)
+
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape, dtype=None: jax.numpy.asarray(
+                            noise(calls["jax"], tuple(shape))))
+    monkeypatch.setattr(port_vae, "standard_normal",
+                        lambda sample, shape, device: torch.from_numpy(
+                            noise(calls["torch"], tuple(shape))))
+    real = {"jax": jt.reconstruct_device, "torch": tt.reconstruct_device}
+
+    def jax_call(*args, **kwargs):
+        calls["jax"] += 1
+        jt._reconstruct_jit.clear()  # the patched noise is traced anew
+        return real["jax"](*args, **kwargs)
+
+    def torch_call(*args, **kwargs):
+        calls["torch"] += 1
+        return real["torch"](*args, **kwargs)
+
+    monkeypatch.setattr(jt, "reconstruct_device", jax_call)
+    monkeypatch.setattr(tt, "reconstruct_device", torch_call)
+    kw = dict(threshold=None, applyHyperIntensityPrior=False,
+              numMonteCarloSamples=3)
+    ref = jax_evaluate(ds, jt, js, _options(tmp_path / "jax", **kw), cfg)
+    got = E.evaluate(ds, tt, _options(tmp_path / "torch", **kw), cfg)
+    n_test = len(ds.patients_of("TEST"))
+    assert calls == {"jax": 3 * n_test, "torch": 3 * n_test}
+    assert set(got) == set(ref)
+    for k in ("diffs", "reconstructions", "epistemic_variance",
+              "combined_variance"):
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=0,
+                                   err_msg=k)
+    for k in ("diff_AUC", "diff_AUPRC", "bestDiceScore", "bestThreshold",
+              "l1reconstructionErrorMean", "l2reconstructionErrorMean"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=CURVE_TOL, atol=1e-7,
+                                   err_msg=k)
+    for k in COUNTS:
+        assert got[k] == ref[k], k
+    hist_got, hist_ref = got["uncertaintyHistogram"], ref[
+        "uncertaintyHistogram"]
+    # float32 round-off moves a voxel or two across a bin or range edge
+    assert abs(int(hist_got.sum()) - int(hist_ref.sum())) <= 2
+    assert np.abs(hist_got - hist_ref).max() <= 2
+    ev = got["epistemic_variance"]
+    assert (ev > 1e-6).any()
+    assert not ev[got["reconstructions"] == 0].any()  # outside the mask
+    np.testing.assert_array_equal(got["combined_variance"], ev)
+    assert _files(got["eval_dir"]) == _files(ref["eval_dir"])
+
+
+def test_mc_dropout_evaluation_agrees_with_jax_in_distribution(
+        pair, vae_pairs, tmp_path):
+    """MC evaluation (8 samples) at dropout 0.5 with each package's own
+    random streams: the mean reconstruction and the mean epistemic variance
+    agree in distribution, and the variance is 0 outside the eroded
+    mask."""
+    cfg, jt, js, tt = vae_pairs[0.5]
+    ds = pair[4]
+    kw = dict(threshold=None, applyHyperIntensityPrior=False,
+              numMonteCarloSamples=8)
+    ref = jax_evaluate(ds, jt, js, _options(tmp_path / "jax", **kw), cfg)
+    got = E.evaluate(ds, tt, _options(tmp_path / "torch", **kw), cfg)
+    rec_got, rec_ref = got["reconstructions"], ref["reconstructions"]
+    np.testing.assert_array_equal(rec_got == 0, rec_ref == 0)  # the mask
+    inside = rec_ref != 0
+    assert abs(rec_got[inside].mean() / rec_ref[inside].mean() - 1) < 0.05
+    ratio = (got["epistemic_variance"][inside].mean()
+             / ref["epistemic_variance"][inside].mean())
+    assert 0.67 < ratio < 1.5, ratio
+    assert not got["epistemic_variance"][~inside].any()
+
+
+def test_mc_evaluation_launches_one_median_per_volume(pair, vae_pairs,
+                                                      tmp_path, monkeypatch):
+    """MC samples do not multiply the median: one call per volume."""
+    cfg, _, _, tt = vae_pairs[0.5]
+    ds = pair[4]
+    calls = []
+    real = E.median_filter_3d_auto
+    monkeypatch.setattr(E, "median_filter_3d_auto",
+                        lambda vol, kernel=5: calls.append(1) or real(
+                            vol, kernel))
+    E.evaluate(ds, tt, _options(tmp_path, numMonteCarloSamples=4), cfg)
+    assert len(calls) == len(ds.patients_of("TEST"))

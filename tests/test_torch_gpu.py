@@ -140,3 +140,80 @@ def test_evaluate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         np.testing.assert_allclose(res["cuda"][k], res["cpu"][k], rtol=1e-4)
     np.testing.assert_allclose(res["cuda"]["diffs"], res["cpu"]["diffs"],
                                atol=1e-5, rtol=0)
+
+
+def _vae_trainer(trainer, model, device, **kw):
+    cfg = Config(trainer=trainer, model=model, outputWidth=32,
+                 outputHeight=32, zDim=16, compute_dtype="float32",
+                 restore_steps=5, tv_lambda=0.5, **kw)
+    t = get_trainer(trainer)(cfg, device=device)
+    t.init_state()
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trainer,model", [
+    ("VAE", "variational_autoencoder"),
+    ("ceVAE", "context_encoder_variational_autoencoder"),
+    ("VAE_You", "variational_autoencoder"),
+    ("ceVAE", "context_encoder_variational_autoencoder_Zimmerer"),
+])
+def test_reconstruction_on_card_matches_cpu(cuda, monkeypatch, trainer,
+                                            model):
+    """Forward (VAE, ceVAE), 5-step restoration (VAE_You) and gradient
+    restoration (ceVAE) with the same given noise, float32, TF32 off."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        size=(6, 32, 32, 1)).astype(np.float32))
+    noise = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(6, 16)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = _vae_trainer(trainer, model, dev,
+                         use_gradient_based_restoration=0.1)
+        out[dev] = t.reconstruct_device(x.to(dev), generator=noise.to(dev))[
+            "reconstruction"].cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_batched_restoration_on_card_equals_per_volume_calls(cuda):
+    t = _vae_trainer("VAE_You", "variational_autoencoder", "cuda",
+                     dropout_rate=0.5)
+    counts = [4, 2]
+    vols = torch.zeros(2, 4, 32, 32, 1, device=cuda)
+    for k, n in enumerate(counts):
+        vols[k, :n] = torch.rand(n, 32, 32, 1, device=cuda)
+    got = t.reconstruct_volumes_device(
+        vols, dropout=True, counts=counts,
+        generators=[torch.Generator(device=cuda).manual_seed(k)
+                    for k in range(2)])["reconstruction"]
+    for k, n in enumerate(counts):
+        alone = t.reconstruct_device(
+            vols[k, :n], dropout=True,
+            generator=torch.Generator(device=cuda).manual_seed(k),
+        )["reconstruction"]
+        torch.testing.assert_close(got[k, :n], alone, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_mc_evaluate_on_card(cuda, tmp_path):
+    """MC evaluation on the card: one median launch per volume (not per
+    sample), finite variances that are 0 outside the eroded mask."""
+    from unsupervised_anomaly_detection_brain_mri_tpu.config import PathConfig
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
+        evaluate as E,
+    )
+
+    t = _vae_trainer("VAE", "variational_autoencoder", "cuda",
+                     dropout_rate=0.5)
+    ds = _small_cohort(True)
+    before = M.LAUNCHES
+    res = E.evaluate(ds, t, Options(
+        paths=PathConfig(sample_dir=str(tmp_path)), erosionIterations=3,
+        numMonteCarloSamples=4), t.config)
+    assert M.LAUNCHES - before == len(ds.patients_of("TEST"))
+    ev = res["epistemic_variance"]
+    assert np.isfinite(ev).all() and (ev > 0).any()
+    assert not ev[res["reconstructions"] == 0].any()

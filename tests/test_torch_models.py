@@ -183,8 +183,9 @@ def test_unported_models_raise(name):
 
 def test_unported_trainers_raise():
     assert trainer_registry.get_trainer("AE").__name__ == "AE"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trainer_registry.get_trainer("VAE")
+    for name in ("GMVAE", "AAE"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            trainer_registry.get_trainer(name)
 
 
 def test_init_state_is_seeded_glorot():

@@ -43,6 +43,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
     CHECKPOINT,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+    get_trainer,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
@@ -128,13 +131,41 @@ def test_detect_matches_jax(converted, size, with_brainmask):
     assert abs(got["anomalous_voxels"] - ref["anomalous_voxels"]) <= near
 
 
-def test_mc_dropout_serving_is_not_yet_ported(converted):
-    wd = converted[3]
-    det = inference.AnomalyDetector.from_workdir(
-        wd, options=OPTIONS.replace(numMonteCarloSamples=3), device="cpu")
-    vol = make_phantom(np.random.default_rng(1), 32, 8, True)["volume"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        det.detect(vol)
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+def test_mc_dropout_serving_matches_jax(converted, tmp_path, rate):
+    """``detect`` under an operating point of 8 MC samples.  At dropout 0
+    the AE's samples are equal in both packages and every output agrees
+    (variances 0); at dropout 0.5 each package draws its own masks and the
+    mean epistemic variance agrees in distribution, 0 outside the eroded
+    mask."""
+    trainer, state, cfg, wd = converted
+    cfg = cfg.replace(dropout_rate=rate)
+    opts = OPTIONS.replace(numMonteCarloSamples=8)
+    jax_det = jax_inference.AnomalyDetector(
+        jax_get_trainer("AE")(cfg, opts), state, cfg, opts)
+    os.makedirs(tmp_path / "torch")
+    torch.save(torch.load(os.path.join(wd, CHECKPOINT), weights_only=True),
+               tmp_path / CHECKPOINT)
+    (tmp_path / "config.json").write_text(cfg.to_json())
+    det = inference.AnomalyDetector.from_workdir(str(tmp_path),
+                                                 options=opts, device="cpu")
+    vol = make_phantom(np.random.default_rng(1), 32, 12, True)["volume"]
+    ref, got = jax_det.detect(vol), det.detect(vol)
+    assert set(got) == set(ref)
+    inside = ref["reconstruction"] != 0
+    np.testing.assert_array_equal(got["reconstruction"] != 0, inside)
+    ev = got["epistemic_variance"]
+    assert not ev[~inside].any()
+    np.testing.assert_array_equal(got["combined_variance"], ev)
+    if rate == 0.0:
+        for k in ("anomaly_map", "reconstruction", "scores",
+                  "epistemic_variance"):
+            np.testing.assert_allclose(got[k], ref[k], atol=ATOL, rtol=0,
+                                       err_msg=k)
+        assert np.abs(ev).max() < 1e-6  # equal samples, float32 round-off
+    else:
+        ratio = ev[inside].mean() / ref["epistemic_variance"][inside].mean()
+        assert ev[inside].mean() > 0 and 0.67 < ratio < 1.5, ratio
 
 
 def test_calibration_file_is_shared_with_jax(converted, tmp_path):
@@ -168,6 +199,31 @@ def jax_workdir():
     path = _load_tool().convert(wd)
     assert path == os.path.join(wd, CHECKPOINT) and os.path.isfile(path)
     return wd
+
+
+@pytest.mark.parametrize("trainer,model", [
+    ("AE", "autoencoder_spatial"),
+    ("VAE_You", "variational_autoencoder"),
+    ("ceVAE", "context_encoder_variational_autoencoder"),
+])
+def test_tool_converts_vae_family_workdirs(trainer, model, tmp_path):
+    """A JAX checkpoint of each unified-backbone model of the family
+    becomes the port's checkpoint, and the swept ``tv_lambda.json`` is read
+    by both packages as it stands."""
+    cfg = _config().replace(trainer=trainer, model=model)
+    jt = jax_get_trainer(trainer)(cfg, workdir=str(tmp_path))
+    js = jt.init_state()
+    jt.save_checkpoint(js, 1)
+    (tmp_path / "tv_lambda.json").write_text('{"tv_lambda_value": 0.3}')
+    _load_tool().convert(str(tmp_path))
+    port = get_trainer(trainer)(cfg, workdir=str(tmp_path))
+    assert port.load_checkpoint() is not None
+    assert port.tv_lambda_value == 0.3
+    want = params_from_flax(jax.device_get(js.params),
+                            jax.device_get(js.batch_stats))
+    got = port.model.state_dict()
+    assert set(got) == set(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_infer_cli_matches_jax_cli(jax_workdir, tmp_path):
@@ -211,8 +267,9 @@ def test_cli_training_subcommands_are_not_yet_ported(capsys):
     assert cli.main(["validate-data"]) == 2
     assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--synthetic", "-t", "VAE", "-m",
-                  "variational_autoencoder", "-w", "32", "-g", "32",
+        cli.main(["--synthetic", "-t", "GMVAE", "-m",
+                  "gaussian_mixture_variational_autoencoder", "-w", "32",
+                  "-g", "32",
                   "-s", "0", "-e", "8", "--device", "cpu"])
 
 

@@ -3,9 +3,10 @@
 
 Restores the workdir's orbax checkpoint with the JAX package's own
 ``load_checkpoint`` and writes ``<workdir>/torch/model.pt`` (the port's
-``state_dict``, via ``models/convert.py::params_from_flax``).  The
-``config.json`` and any ``calibration.json`` already in the workdir are
-shared by both packages, so afterwards
+``state_dict``, via ``models/convert.py::params_from_flax``), for every
+model the port has (the AEs, the VAEs and the ceVAEs).  The
+``config.json``, any ``calibration.json`` and a swept ``tv_lambda.json``
+already in the workdir are shared by both packages, so afterwards
 
     python -m unsupervised_anomaly_detection_brain_mri_tpu_torch infer \\
         --workdir W -i scan.nii.gz

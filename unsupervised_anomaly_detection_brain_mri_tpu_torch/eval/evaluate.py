@@ -10,13 +10,29 @@ launches the CUDA kernel once.  Residuals accumulate on the trainer's
 device; the curve sweep, connected components, confusion counts and
 detection counts run there; host copies are made where artifacts need them.
 
+Trainers that restore a volume stack (``VAE_You``) reconstruct
+``restorationVolumeBatch`` volumes per restoration.  With
+``numMonteCarloSamples > 1`` every volume is reconstructed that many times
+with dropout on; the samples are masked by the eroded brainmask, their mean
+is the reconstruction, and the epistemic and combined variances enter the
+eval dict (``epistemic_variance``, ``combined_variance``) and their
+histogram.  The median still runs once per volume.
+
+Random sources (the seeding rule): volume p of a split (its index in the
+split's enumeration) is reconstructed with a generator on the trainer's
+device seeded from the tuple ``(config.seed + 7, p)``, and its MC sample i
+with one seeded from ``(config.seed + 7, p, i)``; ``volume_generator``
+turns a tuple into a seed through numpy's ``SeedSequence``.  Serving uses
+``(0,)`` and ``(0, i)``.  The JAX package folds the same indices into
+``key(seed + 7)``; the two streams differ, so MC results agree between the
+packages in distribution, and exactly only with given noise and no
+dropout.
+
 Artifacts are the JAX package's: ``evalPC.npy``/``.txt``/``.json``,
 ``rocPC.npy``, ``prcPC.npy`` and the histogram, curve and slice pictures of
 its host-only ``eval/artifacts.py``.  The pictures need matplotlib and
 imageio; without them each one is replaced by a printed line naming the
 missing package, and every numeric artifact is still written.
-
-MC-dropout reconstruction (``numMonteCarloSamples > 1``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +43,7 @@ import os
 import sys
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,23 +122,110 @@ def _zoom_volume(vol: np.ndarray, target: Tuple[int, int],
     return out
 
 
-def _reconstruct_volume(trainer, x: torch.Tensor, options: Options
-                        ) -> Dict[str, Any]:
-    """Reconstruct all slices of one volume as one batch.
+def volume_generator(device: torch.device, *key: int) -> torch.Generator:
+    """A generator on ``device`` seeded from the integer tuple ``key``
+    (through numpy's ``SeedSequence``): ``(seed + 7, p)`` for volume p of
+    an evaluation, ``(seed + 7, p, i)`` for its MC sample i."""
+    seed = int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
-    x: (S, H, W, 1) tensor on the trainer's device; everything returned
-    stays on that device: ``reconstruction`` and the per-slice ``l1``
-    (sum |x - rec|) and ``l2`` (sum sqrt((x - rec)^2)) of the unmasked
-    reconstruction."""
-    if int(options.numMonteCarloSamples or 0) > 1:
-        raise NotImplementedError(
-            "MC-dropout reconstruction (numMonteCarloSamples > 1) is not yet "
-            "ported, see ROADMAP.md")
-    rec = trainer.reconstruct_device(x)["reconstruction"]
-    err = x - rec
-    return {"reconstruction": rec,
-            "l1": torch.sum(torch.abs(err), dim=(1, 2, 3)),
-            "l2": torch.sum(torch.sqrt(err ** 2), dim=(1, 2, 3))}
+
+def _mc_combine(recs: List[torch.Tensor], mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(mean, epistemic variance, combined variance) of MC samples already
+    masked by ``mask``.  No ported model has an aleatoric ``log_var`` head,
+    so the combined variance is the epistemic one, masked."""
+    stacked = torch.stack(recs)
+    epistemic = M.combined_predictive_uncertainty(
+        stacked, torch.zeros_like(stacked), axis=0)
+    return stacked.mean(dim=0), epistemic, epistemic * mask
+
+
+def _reconstruct_stack(vols: torch.Tensor, counts: List[int],
+                       options: Options, keys: List[Tuple[int, ...]],
+                       erodeds: List[Optional[torch.Tensor]],
+                       reconstruct: Callable[..., torch.Tensor]
+                       ) -> List[Dict[str, Any]]:
+    """Reconstruct K volumes stacked as (K, S, H, W, 1), volume k's first
+    ``counts[k]`` slices real, with MC dropout when
+    ``numMonteCarloSamples > 1``.
+
+    ``reconstruct(vols, dropout, generators)`` returns the (K, S, H, W, 1)
+    reconstruction, volume k drawing from ``generators[k]``: that is
+    ``volume_generator(device, *keys[k])``, and ``(*keys[k], i)`` for MC
+    sample i.  Every MC sample is masked by the eroded brainmask
+    (``erodeds``, (S_k, H, W) on the device, needed for MC) before the
+    samples are combined: the reconstruction is their mean and the
+    variances come from ``combined_predictive_uncertainty``.  ``l1`` (sum
+    |x - rec|) and ``l2`` (sum sqrt((x - rec)^2)) per slice are those of
+    the last, unmasked sample.  Padding is cropped; everything returned
+    stays on the device."""
+    device = vols.device
+    mc = int(options.numMonteCarloSamples or 0)
+    epistemic = combined = None
+    if mc > 1:
+        mask = torch.zeros_like(vols)
+        for k, er in enumerate(erodeds):
+            mask[k, : counts[k]] = er[..., None].to(torch.float32)
+        recs = []
+        for i in range(mc):
+            raw_last = reconstruct(vols, True, [
+                volume_generator(device, *key, i) for key in keys])
+            recs.append(raw_last * mask)
+        rec, epistemic, combined = _mc_combine(recs, mask)
+    else:
+        rec = raw_last = reconstruct(vols, False, [
+            volume_generator(device, *key) for key in keys])
+    err = vols - raw_last
+    l1 = torch.sum(torch.abs(err), dim=(2, 3, 4))
+    l2 = torch.sum(torch.sqrt(err ** 2), dim=(2, 3, 4))
+    return [{"reconstruction": rec[k, :n],
+             "epistemic": None if epistemic is None else epistemic[k, :n],
+             "combined": None if combined is None else combined[k, :n],
+             "l1": l1[k, :n], "l2": l2[k, :n]}
+            for k, n in enumerate(counts)]
+
+
+def _reconstruct_volume(trainer, x: torch.Tensor, options: Options,
+                        key: Tuple[int, ...] = (0,),
+                        eroded: Optional[torch.Tensor] = None
+                        ) -> Dict[str, Any]:
+    """``_reconstruct_stack`` of one volume x, (S, H, W, 1) on the
+    trainer's device, as one batch of its slices through
+    ``trainer.reconstruct_device``."""
+
+    def reconstruct(vols, dropout, generators):
+        return trainer.reconstruct_device(
+            vols[0], dropout=dropout,
+            generator=generators[0])["reconstruction"][None]
+
+    return _reconstruct_stack(x[None], [int(x.shape[0])], options, [key],
+                              [eroded], reconstruct)[0]
+
+
+def _reconstruct_volume_group(trainer, xs: List[torch.Tensor],
+                              options: Options, keys: List[Tuple[int, ...]],
+                              erodeds: List[Optional[torch.Tensor]]
+                              ) -> List[Dict[str, Any]]:
+    """``_reconstruct_stack`` of K volumes in one restoration per MC
+    sample, for the trainers that restore a volume stack
+    (``batched_volume_restoration``): the volumes are zero-padded to one
+    slice count and stacked; each keeps its own generator and its own
+    draws, and the restoration objective is per sample, so each result
+    equals the volume's own ``_reconstruct_volume``."""
+    counts = [int(x.shape[0]) for x in xs]
+    vols = torch.zeros((len(xs), max(counts)) + tuple(xs[0].shape[1:]),
+                       device=xs[0].device)
+    for k, x in enumerate(xs):
+        vols[k, : counts[k]] = x
+
+    def reconstruct(vols, dropout, generators):
+        return trainer.reconstruct_volumes_device(
+            vols, dropout=dropout, counts=counts,
+            generators=generators)["reconstruction"]
+
+    return _reconstruct_stack(vols, counts, options, keys, erodeds,
+                              reconstruct)
 
 
 def _eroded_mask(skullmap: torch.Tensor, options: Options) -> torch.Tensor:
@@ -133,14 +236,12 @@ def _eroded_mask(skullmap: torch.Tensor, options: Options) -> torch.Tensor:
     return skullmap.to(torch.bool)
 
 
-def _erode_and_postprocess(x: torch.Tensor, rec: torch.Tensor,
-                           skm: torch.Tensor, prior_q: float,
-                           options: Options, want_raw: bool = False):
+def _postprocess(x: torch.Tensor, rec: torch.Tensor, eroded: torch.Tensor,
+                 prior_q: float, options: Options, want_raw: bool = False):
     """Residual -> eroded-brainmask multiply -> prior -> median, on the
-    tensors' device.  x, rec, skm: (S, H, W).  With ``want_raw`` also
+    tensors' device.  x, rec, eroded: (S, H, W).  With ``want_raw`` also
     returns the residual before the median (for the ``_diff.png``
     pictures)."""
-    eroded = _eroded_mask(skm, options)
     diff = P.positive_residual(x, rec, bool(options.keepOnlyPositiveResiduals))
     diff = diff * eroded.to(diff.dtype)
     if options.applyHyperIntensityPrior:
@@ -191,9 +292,11 @@ def _evaluate(dataset, trainer, sample_dir: str, options: Options,
               config: Config, split: str = "TEST") -> Tuple[Dict, List]:
     """Per-patient reconstruction and residual post-processing of a split.
 
-    Volumes go one at a time: load and resize on the host, reconstruct and
-    post-process on the trainer's device.  Residuals stay on the device;
-    inputs, labels and reconstructions are kept on the host."""
+    Volumes stream: load and resize on the host, then reconstruct and
+    post-process on the trainer's device, one volume at a time, or
+    ``restorationVolumeBatch`` volumes at a time for the trainers that
+    restore a volume stack.  Residuals stay on the device; inputs, labels,
+    reconstructions and MC variance maps are kept on the host."""
     os.makedirs(sample_dir, exist_ok=True)
     patients = dataset.patients_of(split)
     print(f"Testing {len(patients)} patients...")
@@ -202,18 +305,26 @@ def _evaluate(dataset, trainer, sample_dir: str, options: Options,
     slice_span = (getattr(dataset.options, "sliceEnd", 0)
                   - getattr(dataset.options, "sliceStart", 0))
     want_raw = bool(options.exportPNGs)
+    mc = int(options.numMonteCarloSamples or 0)
+    group_size = max(1, int(options.restorationVolumeBatch))
+    batched = (group_size > 1 and len(patients) > 1
+               and trainer.batched_volume_restoration())
+    if not batched:
+        group_size = 1
 
     xs, recs, diffs, labelmaps, geoms = [], [], [], [], []
     l1s, l2s, times, raw_diffs, slice_names = [], [], [], [], []
+    epistemics, combineds = [], []
     skipped = set()
-    for p, patient in enumerate(patients):
+
+    def prepare(p, patient):
         vol, gt, _, skullmap = dataset.load_volume_and_groundtruth(patient)
         # shape sanity: skip badly-coregistered volumes
         if slice_span > 0 and min(vol.shape) < slice_span:
             print(f"Skipping patient {patient.get('name', p)}: shape "
                   f"{vol.shape} smaller than slice range {slice_span}")
             skipped.add(p)
-            continue
+            return None
         # falsy sliceStart/sliceEnd mean the full volume depth
         s0 = getattr(dataset.options, "sliceStart", 0) or 0
         se = getattr(dataset.options, "sliceEnd", 0)
@@ -229,28 +340,60 @@ def _evaluate(dataset, trainer, sample_dir: str, options: Options,
                    or {"shape": vol.shape, "axis_index": 2,
                        "pixdim": (1.0, 1.0, 1.0), "affine": None})
         geo["slice_range"] = (s0, s1)
-        prior_q = float(np.quantile(vol, 0.9))
+        return {"p": p, "x": x, "seg": seg, "geo": geo, "s0": s0, "s1": s1,
+                "prior_q": float(np.quantile(vol, 0.9)),
+                "xd": torch.from_numpy(x).to(device),
+                "eroded": _eroded_mask(torch.from_numpy(skm).to(device),
+                                       options)}
 
-        xd = torch.from_numpy(x).to(device)
+    def reconstruct(group):
         t0 = time.time()
-        res = _reconstruct_volume(trainer, xd[..., None], options)
+        keys = [(config.seed + 7, it["p"]) for it in group]
+        if batched and len(group) > 1:
+            res = _reconstruct_volume_group(
+                trainer, [it["xd"][..., None] for it in group], options,
+                keys, [it["eroded"] for it in group])
+        else:
+            res = [_reconstruct_volume(trainer, it["xd"][..., None], options,
+                                       key, it["eroded"])
+                   for it, key in zip(group, keys)]
         _sync(device)
-        times.append((time.time() - t0) / max(len(x), 1))
+        per_slice = (time.time() - t0) / max(
+            sum(len(it["x"]) for it in group), 1)
+        times.extend([per_slice] * len(group))
+        return res
+
+    def accumulate(it, res):
         rec = res["reconstruction"][..., 0]
-        out = _erode_and_postprocess(xd, rec, torch.from_numpy(skm).to(device),
-                                     prior_q, options, want_raw=want_raw)
+        out = _postprocess(it["xd"], rec, it["eroded"], it["prior_q"],
+                           options, want_raw=want_raw)
         diff, raw = out if want_raw else (out, None)
         if want_raw:
             raw_diffs.append(raw.cpu().numpy())
             # names use the patient's index in the full split enumeration
-            slice_names.extend(f"{p}_{s}" for s in range(s0, s1))
-        xs.append(x)
+            slice_names.extend(f"{it['p']}_{s}"
+                               for s in range(it["s0"], it["s1"]))
+        xs.append(it["x"])
         recs.append(rec.cpu().numpy())
         diffs.append(diff)
-        labelmaps.append(seg)
-        geoms.append(geo)
+        labelmaps.append(it["seg"])
+        geoms.append(it["geo"])
         l1s.append(res["l1"])
         l2s.append(res["l2"])
+        if res["epistemic"] is not None:
+            epistemics.append(res["epistemic"][..., 0].cpu().numpy())
+            combineds.append(res["combined"][..., 0].cpu().numpy())
+
+    pending: List[Dict[str, Any]] = []
+    for p, patient in enumerate(patients):
+        it = prepare(p, patient)
+        if it is not None:
+            pending.append(it)
+        if pending and (len(pending) >= group_size
+                        or p == len(patients) - 1):
+            for it, res in zip(pending, reconstruct(pending)):
+                accumulate(it, res)
+            pending = []
 
     l1_np = (torch.cat(l1s).cpu().numpy() if l1s
              else np.zeros((0,), np.float32))
@@ -272,6 +415,9 @@ def _evaluate(dataset, trainer, sample_dir: str, options: Options,
         "reconstructionTimes": float(np.mean(times)) if times else 0.0,
         "TPCC": 0, "FPCC": 0, "FNCC": 0,
     }
+    if epistemics:
+        eval_dict["epistemic_variance"] = np.concatenate(epistemics)
+        eval_dict["combined_variance"] = np.concatenate(combineds)
     if raw_diffs:
         eval_dict["raw_diffs"] = np.concatenate(raw_diffs)
         eval_dict["slice_names"] = slice_names
@@ -324,6 +470,19 @@ def evaluate(dataset, trainer, options: Options, config: Config,
           "Histogram of difference images in the lesion testing dataset",
           export_pdf=os.path.join(
               eval_dir, "testing_lesions_diffimages_histogram.pdf"))
+    if "epistemic_variance" in eval_pc:
+        ev = eval_pc["epistemic_variance"]
+        pos = ev[ev >= 0]
+        if pos.size:
+            hist_range = (1e-5, max(float(np.percentile(pos, 99.8)), 2e-5))
+            eval_pc["uncertaintyHistogram"], _ = np.histogram(
+                ev, bins=50, range=hist_range)
+            _plot("epistemic-variance histogram",
+                  "plot_histogram_with_labels", ev, eval_pc["labelmaps"], 50,
+                  hist_range, "Histogram of epistemic variances",
+                  export_pdf=os.path.join(
+                      eval_dir,
+                      "testing_lesions_epistemic_variances_histogram.pdf"))
 
     # ROC / PRC / best Dice: one sorted sweep
     t0 = time.time()
@@ -438,9 +597,11 @@ def evaluate(dataset, trainer, options: Options, config: Config,
     eval_pc["PrecisionCC"] = tpcc / (tpcc + fpcc) if (tpcc + fpcc) > 0 else 0.0
 
     if options.exportPNGs:
+        # the variance pictures show the combined predictive variance
         _plot("slice PNGs", "export_slice_images",
               sample_dir, eval_pc["x"], eval_pc["reconstructions"],
               diffs_np, eval_pc["labelmaps"], thresholded.cpu().numpy(),
+              epistemic=eval_pc.get("combined_variance"),
               raw_diffs=eval_pc.get("raw_diffs"),
               names=eval_pc.get("slice_names"))
 
@@ -460,8 +621,9 @@ def evaluate(dataset, trainer, options: Options, config: Config,
     export = {k: v for k, v in eval_pc.items()
               if k not in ("x", "diffs", "labelmaps", "reconstructions",
                            "geometries", "l1reconstructionErrors",
-                           "l2reconstructionErrors", "raw_diffs",
-                           "slice_names", "diffHistogram")}
+                           "l2reconstructionErrors", "epistemic_variance",
+                           "combined_variance", "raw_diffs", "slice_names",
+                           "diffHistogram")}
     np.save(os.path.join(eval_dir, "evalPC.npy"), export)  # type: ignore
     with open(os.path.join(eval_dir, "evalPC.txt"), "w") as f:
         f.write(str(export))
@@ -500,6 +662,7 @@ def determine_threshold_on_labeled_patients(
                 _plot("slice PNGs", "export_slice_images",
                       ds_sample_dir, ed["x"], ed["reconstructions"], d_np,
                       ed["labelmaps"], np.zeros_like(d_np),
+                      epistemic=ed.get("combined_variance"),
                       raw_diffs=ed.get("raw_diffs"),
                       names=ed.get("slice_names"))
     if not all_diffs:

@@ -8,6 +8,10 @@ Usage:
     det = AnomalyDetector.from_workdir(workdir, device="cuda")
     result = det.detect(volume)            # (H, W, S) raw volume
     result["anomaly_map"], result["mask"], result["scores"]
+
+When the calibration (or ``options``) has ``numMonteCarloSamples > 1``,
+``detect`` runs the MC-dropout reconstruction the threshold was fitted
+under and also returns ``epistemic_variance`` and ``combined_variance``.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
     normalize_volume,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
-    _erode_and_postprocess,
+    _eroded_mask,
+    _postprocess,
     _reconstruct_volume,
     _zoom_volume,
 )
@@ -121,7 +126,9 @@ class AnomalyDetector:
         Returns per-slice anomaly scores and the post-processed anomaly map
         at the model resolution, plus (when a threshold is set) the binary
         mask with small components removed.  Normalisation and resizing run
-        on the host; reconstruction and post-processing on the device."""
+        on the host; reconstruction and post-processing on the device, with
+        the random source ``volume_generator(device, 0)`` (``(0, i)`` for
+        MC sample i)."""
         c = self.config
         o = self.options
         vol = normalize_volume(volume, method=o.normalizationMethod,
@@ -136,10 +143,11 @@ class AnomalyDetector:
         prior_q = float(np.quantile(vol, 0.9))
 
         xd = torch.from_numpy(x).to(self.device)
-        res = _reconstruct_volume(self.trainer, xd[..., None], o)
+        eroded = _eroded_mask(torch.from_numpy(skm).to(self.device), o)
+        res = _reconstruct_volume(self.trainer, xd[..., None], o, (0,),
+                                  eroded)
         rec = res["reconstruction"][..., 0]
-        diff = _erode_and_postprocess(
-            xd, rec, torch.from_numpy(skm).to(self.device), prior_q, o)
+        diff = _postprocess(xd, rec, eroded, prior_q, o)
 
         diff_np = diff.cpu().numpy()
         result: Dict[str, Any] = {
@@ -147,6 +155,11 @@ class AnomalyDetector:
             "reconstruction": rec.cpu().numpy(),
             "scores": diff_np.reshape(diff_np.shape[0], -1).max(axis=1),
         }
+        if res["epistemic"] is not None:
+            result["epistemic_variance"] = res["epistemic"][..., 0].cpu(
+            ).numpy()
+            result["combined_variance"] = res["combined"][..., 0].cpu(
+            ).numpy()
         t = threshold if threshold is not None else self.threshold
         if t is not None:
             mask, cc_conv = P.filter_small_components(

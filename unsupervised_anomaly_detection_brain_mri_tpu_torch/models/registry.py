@@ -1,28 +1,37 @@
 """Model registry: reference model names -> torch modules + metadata.
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/models/
-registry.py`.  Only ``autoencoder`` is ported, in its parity architecture:
-every other name of the JAX registry, and the non-parity
-``spaceToDepthStem``/``depthToSpaceHead`` options, raise
+registry.py`, with its metadata: ``reconstruction_key`` (the output that is
+the reconstruction), ``takes_context`` (a second, context-masked input) and
+``rngs`` (the random streams the model draws: ``dropout``, and ``sample``
+for the VAEs' ``eps``).  Ported, in their parity architecture: the AEs, the
+VAEs and the ceVAEs.  Every other name of the JAX registry, and the
+non-parity ``spaceToDepthStem``/``depthToSpaceHead`` options, raise
 ``NotImplementedError`` until their slice lands.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
 
 from unsupervised_anomaly_detection_brain_mri_tpu.config import Config
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import ae
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
+    ae,
+    cevae,
+    vae,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
     build: Callable[[Config, torch.dtype], nn.Module]
     reconstruction_key: str = "x_hat"
+    takes_context: bool = False
+    rngs: Tuple[str, ...] = ("dropout",)
 
 
 def _std(cls):
@@ -39,17 +48,24 @@ def _std(cls):
     return build
 
 
-MODEL_REGISTRY = {
+_SAMPLE = ("dropout", "sample")
+
+MODEL_REGISTRY: Dict[str, ModelSpec] = {
     "autoencoder": ModelSpec(_std(ae.Autoencoder)),
+    "autoencoder_spatial": ModelSpec(_std(ae.AutoencoderSpatial)),
+    "variational_autoencoder": ModelSpec(
+        _std(vae.VariationalAutoencoder), rngs=_SAMPLE),
+    "variational_autoencoder_Zimmerer": ModelSpec(
+        _std(vae.VariationalAutoencoderZimmerer), rngs=_SAMPLE),
+    "context_encoder_variational_autoencoder": ModelSpec(
+        _std(cevae.ContextEncoderVAE), takes_context=True, rngs=_SAMPLE),
+    "context_encoder_variational_autoencoder_Zimmerer": ModelSpec(
+        _std(cevae.ContextEncoderVAEZimmerer), takes_context=True,
+        rngs=_SAMPLE),
 }
 
 # the rest of the JAX registry, queued in ROADMAP.md
 NOT_YET_PORTED = (
-    "autoencoder_spatial",
-    "variational_autoencoder",
-    "variational_autoencoder_Zimmerer",
-    "context_encoder_variational_autoencoder",
-    "context_encoder_variational_autoencoder_Zimmerer",
     "gaussian_mixture_variational_autoencoder",
     "gaussian_mixture_variational_autoencoder_spatial",
     "gaussian_mixture_variational_autoencoder_You",

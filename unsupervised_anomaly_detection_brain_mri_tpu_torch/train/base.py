@@ -1,5 +1,6 @@
-"""Trainer base and the ``AE`` trainer: init, training, checkpoints,
-reconstruction.
+"""Trainer base and the deterministic trainers (``AE``, ``VAE``,
+``VAE_You``, ``CE``, ``ceVAE``): init, training, checkpoints,
+reconstruction, input restoration.
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/train/base.py`.
 The trainer owns its model, its optimizer and its dropout generator on an
@@ -13,24 +14,36 @@ explicit ``device``; together they are the state (the JAX package's
     early stopping at ``earlyStoppingPatience``, the history, a checkpoint
     after each VAL pass, and resume that replays the VAL history and
     recognises an already-triggered stop;
-  * the slice pool lives on the device; pools above
-    ``Options.streamPoolThresholdMB`` (or with ``streamPool``) stay on the
-    host and stream in chunks of ``streamPoolChunkBatches`` batches, with
-    the same updates bit for bit;
+  * the slice pool (with the brain masks of the context-encoder trainers)
+    lives on the device; pools above ``Options.streamPoolThresholdMB`` (or
+    with ``streamPool``) stay on the host and stream in chunks of
+    ``streamPoolChunkBatches`` batches, with the same updates bit for bit;
+  * the model's inputs come from ``model_inputs`` (a context-masked copy
+    for ``CE`` and ``ceVAE`` in TRAIN) and the losses may see them
+    (``compute_losses_with_inputs``);
+  * ``VAE_You``'s ``tv_lambda`` sweep after training, written to
+    ``tv_lambda.json``: the (lambda, slice) pairs restore together, up to
+    ``SWEEP_CHUNK_SLICES`` slices at a time, each with its own lambda,
+    since the restoration objective is per sample;
   * the sidecars ``config.json``, ``curves.json``, ``Curves.npy`` and
     ``tv_lambda.json``.
 
 Checkpoints: ``<workdir>/torch/model.pt`` holds the weights that serving
 loads (a ``state_dict``).  Beside it ``<workdir>/torch/ckpt/epoch_NNNNNN.pt``
-holds the full state after an epoch (model, optimizer, dropout-generator
-state, global step, epoch); the newest ``keepCheckpoints`` are kept.  All
-are loaded with ``weights_only=True``.
+holds the full state after an epoch (model, optimizer, generator states,
+global step, epoch); the newest ``keepCheckpoints`` are kept.  All are
+loaded with ``weights_only=True``.
 
 Random streams: weights are drawn from a CPU generator seeded with
-``config.seed`` (Glorot uniform); dropout and instance noise from one
-``torch.Generator`` on the trainer's device, seeded with ``config.seed``.
-JAX's threefry streams have no torch counterpart, so dropout masks differ
-between the packages (trajectories are compared at ``dropout_rate=0``).
+``config.seed`` (Glorot uniform).  Training draws dropout, instance noise
+and context masks from ``generator`` on the trainer's device, seeded with
+``config.seed``, and the VAEs' ``eps`` (in TRAIN and VAL) from
+``sample_generator``, seeded with ``config.seed + 1`` (models whose spec
+has a ``sample`` stream).  Reconstruction takes its own source
+(``reconstruct_device(..., generator=)``, a generator seeded 0 by
+default), which drives both dropout and ``eps``.  JAX's threefry streams
+have no torch counterpart, so the draws differ between the packages
+(trajectories are compared at ``dropout_rate=0`` with given noise).
 """
 
 from __future__ import annotations
@@ -40,23 +53,34 @@ import json
 import os
 import re
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from unsupervised_anomaly_detection_brain_mri_tpu.config import Config, Options
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
+    Sample,
+    VolumeGenerators,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.registry import (
     get_model,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
     losses as L,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.context import (
+    random_context_masks,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
     early_stopping_update,
     epoch_indices,
     run_epoch,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.restoration import (
+    gradient_anomaly_map,
+    restore_inputs,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.state import (
     make_optimizer,
@@ -65,6 +89,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.state import (
 CHECKPOINT = os.path.join("torch", "model.pt")
 CHECKPOINT_DIR = os.path.join("torch", "ckpt")
 _EPOCH_FILE = re.compile(r"epoch_(\d+)\.pt$")
+# slices per restoration of the lambda sweep: 1,280 slices of 128x128 in
+# bf16 peak at 10.6 GiB of device memory on an H100
+SWEEP_CHUNK_SLICES = 1280
 
 Batch = Dict[str, Any]
 
@@ -85,6 +112,7 @@ class BaseTrainer:
     reconstruction."""
 
     early_stop_metric: str = "loss"
+    needs_brainmask: bool = False
     VALID_PHASES = ("TRAIN", "VAL")
 
     def __init__(self, config: Config, options: Optional[Options] = None,
@@ -105,6 +133,10 @@ class BaseTrainer:
         self.model = model.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
+        self.sample_generator: Optional[torch.Generator] = None
+        if "sample" in self.spec.rngs:
+            self.sample_generator = torch.Generator(
+                device=self.device).manual_seed(config.seed + 1)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.history: List[Dict[str, Any]] = []
@@ -119,7 +151,7 @@ class BaseTrainer:
         """Glorot-uniform weights, zero biases, BatchNorm at scale 1, bias
         0 and running statistics (0, 1), drawn on the CPU from
         ``generator`` (default: seeded with ``config.seed``).  Also starts
-        a fresh optimizer, step count and dropout stream."""
+        a fresh optimizer, step count and random streams."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.config.seed)
         with torch.no_grad():
@@ -135,6 +167,8 @@ class BaseTrainer:
         self.optimizer = self.make_optimizer()
         self.step = 0
         self.generator.manual_seed(self.config.seed)
+        if self.sample_generator is not None:
+            self.sample_generator.manual_seed(self.config.seed + 1)
         print(f"[{self.__class__.__name__}] {self.config.model}: "
               f"{count_params(self.model):,} parameters")
         return self.model
@@ -155,18 +189,38 @@ class BaseTrainer:
                             device=x.device, dtype=x.dtype)
         return {**batch, "x": x + 0.01 * noise}
 
-    def apply_model(self, batch: Batch, train: bool) -> Dict[str, Any]:
+    def model_inputs(self, batch: Batch, train: bool
+                     ) -> Tuple[torch.Tensor, ...]:
+        """Positional inputs of the model call (the context-encoder
+        trainers add or substitute a masked image)."""
+        return (batch["x"],)
+
+    def apply_model(self, batch: Batch, train: bool
+                    ) -> Tuple[Dict[str, Any], Tuple[torch.Tensor, ...]]:
         """Forward in train mode (dropout from the trainer's generator,
-        batch statistics) or eval mode (no dropout, running statistics).
-        Instance noise reaches the model's input only: the losses see the
-        clean batch."""
-        inputs = self.maybe_add_instance_noise(batch, train)
+        batch statistics) or eval mode (no dropout, running statistics);
+        ``eps`` from the sample generator in both.  Returns the outputs and
+        the model's inputs.  Instance noise reaches the model's input only:
+        the losses see the clean batch."""
+        inputs = self.model_inputs(
+            self.maybe_add_instance_noise(batch, train), train)
         self.model.train(train)
-        return self.model(inputs["x"], self.generator if train else None)
+        outputs = self.model(
+            *inputs, dropout_generator=self.generator if train else None,
+            sample=self.sample_generator)
+        return outputs, inputs
 
     def compute_losses(self, outputs: Dict[str, torch.Tensor],
                        batch: Batch) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
+
+    def compute_losses_with_inputs(self, outputs: Dict[str, torch.Tensor],
+                                   batch: Batch,
+                                   inputs: Tuple[torch.Tensor, ...]
+                                   ) -> Dict[str, torch.Tensor]:
+        """The losses, given also the inputs the model was called with;
+        ``compute_losses`` unless a trainer needs them."""
+        return self.compute_losses(outputs, batch)
 
     @staticmethod
     def _scalar_metrics(losses: Dict[str, torch.Tensor]
@@ -175,8 +229,8 @@ class BaseTrainer:
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         """Forward, backward and one optimizer step."""
-        outputs = self.apply_model(batch, train=True)
-        losses = self.compute_losses(outputs, batch)
+        outputs, inputs = self.apply_model(batch, train=True)
+        losses = self.compute_losses_with_inputs(outputs, batch, inputs)
         self.optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
         self.optimizer.step()
@@ -185,8 +239,9 @@ class BaseTrainer:
 
     @torch.no_grad()
     def val_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        outputs = self.apply_model(batch, train=False)
-        return self._scalar_metrics(self.compute_losses(outputs, batch))
+        outputs, inputs = self.apply_model(batch, train=False)
+        return self._scalar_metrics(
+            self.compute_losses_with_inputs(outputs, batch, inputs))
 
     @classmethod
     def check_phase(cls, phase: str) -> str:
@@ -200,12 +255,15 @@ class BaseTrainer:
     # fit loop
 
     def _pool_from_dataset(self, dataset, split: str) -> Optional[Batch]:
-        """Slice pool of a split: numpy on the host when it streams,
+        """Slice pool of a split (with its brain masks for the
+        context-encoder trainers): numpy on the host when it streams,
         tensors on the trainer's device otherwise."""
         arr = dataset.slices(split)
         if arr is None or len(arr) == 0:
             return None
         pool = {"x": np.asarray(arr, np.float32)}
+        if self.needs_brainmask:
+            pool["mask"] = np.asarray(dataset.brainmasks(split), np.float32)
         if self._stream_pool(pool):
             return pool
         return {k: torch.from_numpy(v).to(self.device)
@@ -364,6 +422,74 @@ class BaseTrainer:
     def post_fit(self, dataset) -> None:
         """Hook after training (the restoration trainers' lambda sweep)."""
 
+    def determine_best_lambda(self, dataset) -> float:
+        """The ``tv_lambda`` in {0.0, 0.1, .., 1.9} whose restoration of 20 %
+        of the VAL batches has the least mean sum |x - restored| per batch;
+        written to ``<workdir>/tv_lambda.json``.  Needs the trainer's
+        ``_restoration_fn``.
+
+        The JAX package restores each (lambda, batch) pair in turn.  Here
+        the pairs restore together, up to ``SWEEP_CHUNK_SLICES`` slices at
+        a time, each slice under its own lambda: the objective is a sum of
+        per-sample terms, so the errors equal the sequential ones up to
+        summation order."""
+        c = self.config
+        arr = dataset.slices("VAL")
+        bs = min(c.batchsize, len(arr))
+        if bs == 0:
+            print("determine_best_lambda: empty VAL split, keeping lambda")
+            return self.tv_lambda_value
+        n_batches = max(1, int((len(arr) // bs) * 0.2))
+        x = torch.from_numpy(np.asarray(arr[: n_batches * bs],
+                                        np.float32)).to(self.device)
+        lambdas = torch.arange(20, dtype=torch.float32,
+                               device=self.device) / 10.0
+        t0 = time.perf_counter()
+        errors = self.lambda_sweep_errors(x, lambdas, n_batches)
+        best = float(lambdas[torch.argmin(errors)])
+        sweep_s = time.perf_counter() - t0
+        self.tv_lambda_value = best
+        print(f"Best lambda: {best} (sweep: {len(lambdas)} lambdas x "
+              f"{len(x)} slices x {c.restore_steps} steps in "
+              f"{sweep_s:.2f} s)")
+        if self.workdir:
+            with open(os.path.join(self.workdir, "tv_lambda.json"),
+                      "w") as f:
+                json.dump({"tv_lambda_value": best}, f)
+        return best
+
+    def lambda_sweep_errors(self, x: torch.Tensor, lambdas: torch.Tensor,
+                            n_batches: int) -> torch.Tensor:
+        """(len(lambdas),) mean over the ``n_batches`` batches of x of
+        sum |x - restored| per batch.
+
+        The (lambda, batch) pairs (lambda-major) restore together, as many
+        whole pairs per restoration as fit in ``SWEEP_CHUNK_SLICES``, so
+        device memory stays bounded whatever the size of VAL.  Each pair
+        draws its eps from its own generator seeded 0, as each of the JAX
+        package's sequential restorations uses ``key(0)``; the objective is
+        per sample, so the errors do not depend on the chunk size."""
+        c = self.config
+        bs = x.shape[0] // n_batches
+        pairs = [(lam, b) for lam in range(len(lambdas))
+                 for b in range(n_batches)]
+        per_chunk = max(1, SWEEP_CHUNK_SLICES // bs)
+        self.model.eval()
+        errs = []
+        for i in range(0, len(pairs), per_chunk):
+            chunk = pairs[i:i + per_chunk]
+            xs = torch.cat([x[b * bs:(b + 1) * bs] for _, b in chunk])
+            lam = lambdas[[lam for lam, _ in chunk]].repeat_interleave(bs)
+            source = VolumeGenerators(
+                [torch.Generator(device=self.device).manual_seed(0)
+                 for _ in chunk], [bs] * len(chunk), bs)
+            restored = restore_inputs(
+                self._restoration_fn(False), xs, lam, c.restore_lr,
+                c.restore_steps, source)
+            errs.append(L.sum_per_sample(torch.abs(xs - restored)))
+        err = torch.cat(errs)
+        return err.reshape(len(lambdas), n_batches, bs).sum(2).mean(1)
+
     # ------------------------------------------------------------------
     # checkpoints
 
@@ -384,6 +510,8 @@ class BaseTrainer:
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "generator": self.generator.get_state(),
+            **({"sample_generator": self.sample_generator.get_state()}
+               if self.sample_generator is not None else {}),
             "step": int(self.step),
             "epoch": int(epoch),
         }, os.path.join(ckpt_dir, f"epoch_{epoch:06d}.pt"))
@@ -453,6 +581,8 @@ class BaseTrainer:
             self.optimizer = self.make_optimizer()
         self.optimizer.load_state_dict(ckpt["optimizer"])
         self.generator.set_state(ckpt["generator"])
+        if self.sample_generator is not None:
+            self.sample_generator.set_state(ckpt["sample_generator"])
         self.step = int(ckpt["step"])
         print(f"Restored checkpoint at epoch {epoch}")
         self._load_tv_lambda()
@@ -461,17 +591,47 @@ class BaseTrainer:
     # ------------------------------------------------------------------
     # reconstruction (evaluation API)
 
-    @torch.no_grad()
-    def reconstruct_device(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Reconstruct a batch of (B, H, W, C) slices on the trainer's
-        device in eval mode, without dropout, as one batch.  Returns
-        ``reconstruction`` plus every model output."""
+    def _eval_generator(self, generator: Optional[Sample]) -> Sample:
+        """The random source of a reconstruction: as given, or a generator
+        on the trainer's device seeded 0 (the JAX package's key(0))."""
+        if generator is not None:
+            return generator
+        return torch.Generator(device=self.device).manual_seed(0)
+
+    def _slices(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim < 4:
             x = x[None]
+        return x.to(self.device, torch.float32)
+
+    def _call(self, inputs: Sequence[torch.Tensor], dropout: bool,
+              generator: Sample) -> Dict[str, torch.Tensor]:
+        """Eval-mode forward; ``generator`` draws the dropout masks (when
+        ``dropout``) and ``eps``."""
         self.model.eval()
-        outputs = self.model(x.to(self.device, torch.float32))
+        return self.model(*inputs,
+                          dropout_generator=generator if dropout else None,
+                          sample=generator)
+
+    @torch.no_grad()
+    def reconstruct_device(self, x: torch.Tensor, dropout: bool = False,
+                           generator: Optional[Sample] = None
+                           ) -> Dict[str, torch.Tensor]:
+        """Reconstruct a batch of (B, H, W, C) slices on the trainer's
+        device in eval mode, as one batch; with ``dropout`` (MC sampling)
+        dropout masks are drawn from ``generator``, which also draws the
+        VAEs' ``eps`` (default: a generator seeded 0).  A tensor given as
+        ``generator`` is the noise itself (``eps`` only).  Returns
+        ``reconstruction`` plus every model output."""
+        x = self._slices(x)
+        outputs = self._call(self.model_inputs({"x": x}, train=False),
+                             dropout, self._eval_generator(generator))
         return {"reconstruction": outputs[self.spec.reconstruction_key],
                 **outputs}
+
+    def batched_volume_restoration(self) -> bool:
+        """True when ``reconstruct_volumes_device`` restores a stack of
+        volumes in one restoration (the evaluator then groups volumes)."""
+        return False
 
     def reconstruct(self, x) -> Dict[str, Any]:
         """Reconstruct a batch of slices; numpy ``reconstruction`` and every
@@ -500,3 +660,119 @@ class AE(BaseTrainer):
     def compute_losses(self, outputs, batch):
         rec = L.l1_recon_sum(batch["x"], outputs["x_hat"])
         return {"loss": rec, "reconstructionLoss": rec}
+
+
+class VAE(BaseTrainer):
+    """VAE: per-sample L1 plus the analytic KL."""
+
+    def compute_losses(self, outputs, batch):
+        out = L.vae_loss(batch["x"], outputs)
+        return {k: v for k, v in out.items() if k != "pixel_loss"}
+
+
+class VAE_You(VAE):
+    """VAE whose reconstruction is the input restored by ``restore_steps``
+    steps of gradient descent on pixel loss + ``tv_lambda`` x TV, with
+    ``tv_lambda`` swept after training when the config leaves it negative."""
+
+    def post_fit(self, dataset) -> None:
+        if self.tv_lambda_value < 0:
+            self.determine_best_lambda(dataset)
+
+    def _restoration_fn(self, dropout: bool):
+        """(x, generator) -> (per-sample L1 + KL, x_hat) from ONE eval-mode
+        forward; ``dropout`` draws dropout masks too (MC sampling)."""
+
+        def outputs_fn(x: torch.Tensor, generator: Sample):
+            out = self._call((x,), dropout, generator)
+            rec = L.sum_per_sample(L.l1_elem(x, out["x_hat"]))
+            return rec + L.vae_kl(out["z_mu"], out["z_sigma"]), out["x_hat"]
+
+        return outputs_fn
+
+    def _restore(self, x: torch.Tensor, dropout: bool,
+                 generator: Sample) -> torch.Tensor:
+        c = self.config
+        return restore_inputs(self._restoration_fn(dropout), x,
+                              max(self.tv_lambda_value, 0.0), c.restore_lr,
+                              c.restore_steps, generator)
+
+    def reconstruct_device(self, x, dropout=False, generator=None):
+        """The restored input (``tv_lambda`` clamped at 0)."""
+        return {"reconstruction": self._restore(
+            self._slices(x), dropout, self._eval_generator(generator))}
+
+    def batched_volume_restoration(self) -> bool:
+        return self.config.restore_steps > 0
+
+    def reconstruct_volumes_device(self, vols: torch.Tensor,
+                                   dropout: bool = False,
+                                   generators: Sequence[torch.Generator] = (),
+                                   counts: Optional[Sequence[int]] = None
+                                   ) -> Dict[str, torch.Tensor]:
+        """Restore K volumes stacked as (K, S, H, W, C) in one restoration
+        of K x S slices.  Volume k has ``counts[k]`` real slices (default
+        all S) and its own generator: its draws are made at its real shape
+        (``VolumeGenerators``), and the objective is per sample, so each
+        volume's result equals a ``reconstruct_device`` call on it alone
+        with that generator.  Padding slices are restored too and are the
+        caller's to crop."""
+        K, S = vols.shape[:2]
+        counts = [S] * K if counts is None else list(counts)
+        source = VolumeGenerators(generators, counts, S)
+        flat = vols.reshape((K * S,) + tuple(vols.shape[2:]))
+        restored = self._restore(flat.to(self.device, torch.float32),
+                                 dropout, source)
+        return {"reconstruction": restored.reshape(vols.shape)}
+
+
+class CE(BaseTrainer):
+    """Context-encoder AE: trained on context-masked inputs, with the L1
+    loss against the clean image."""
+
+    needs_brainmask = True
+
+    def model_inputs(self, batch, train):
+        if train and "mask" in batch:
+            return (random_context_masks(self.generator, batch["x"],
+                                         batch["mask"]),)
+        return (batch["x"],)
+
+    def compute_losses(self, outputs, batch):
+        rec = L.l1_recon_sum(batch["x"], outputs["x_hat"])
+        return {"loss": rec, "reconstructionLoss": rec}
+
+
+class CeVAE(BaseTrainer):
+    """ceVAE: VAE loss on the clean branch plus L1 of the context branch;
+    with ``use_gradient_based_restoration`` = lambda > 0 the reconstruction
+    is ``x - lambda * |x - x_hat| * |d loss_vae / dx|``."""
+
+    needs_brainmask = True
+
+    def model_inputs(self, batch, train):
+        x = batch["x"]
+        if train and "mask" in batch:
+            return (x, random_context_masks(self.generator, x,
+                                            batch["mask"]))
+        return (x, x)
+
+    def compute_losses_with_inputs(self, outputs, batch, inputs):
+        # L1_ce targets the model's second input: the masked image in
+        # TRAIN, the clean one in VAL
+        return L.cevae_loss(batch["x"], inputs[1], outputs)
+
+    def reconstruct_device(self, x, dropout=False, generator=None):
+        lam = float(self.config.use_gradient_based_restoration)
+        if lam <= 0:
+            return super().reconstruct_device(x, dropout, generator)
+        x = self._slices(x)
+        generator = self._eval_generator(generator)
+
+        def outputs_fn(xi: torch.Tensor):
+            out = self._call((xi, xi), dropout, generator)
+            rec = L.sum_per_sample(L.l1_elem(xi, out["x_hat"]))
+            return rec + L.vae_kl(out["z_mu"], out["z_sigma"]), out["x_hat"]
+
+        anomaly, _ = gradient_anomaly_map(outputs_fn, x)
+        return {"reconstruction": x - lam * anomaly}

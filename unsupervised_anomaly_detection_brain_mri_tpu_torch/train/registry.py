@@ -1,7 +1,7 @@
 """Trainer registry: reference trainer names -> trainer classes.
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/train/
-registry.py`.  Only ``AE`` is ported.
+registry.py`.  Ported: ``AE``, ``VAE``, ``VAE_You``, ``CE`` and ``ceVAE``.
 """
 
 from __future__ import annotations
@@ -12,11 +12,14 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import base
 
 TRAINER_REGISTRY: Dict[str, Type[base.BaseTrainer]] = {
     "AE": base.AE,
+    "VAE": base.VAE,
+    "VAE_You": base.VAE_You,
+    "CE": base.CE,
+    "ceVAE": base.CeVAE,
 }
 
-NOT_YET_PORTED = ("VAE", "VAE_You", "CE", "ceVAE", "GMVAE", "GMVAE_spatial",
-                  "ConstrainedAE", "AAE", "ConstrainedAAE", "fAnoGAN",
-                  "AnoVAEGAN")
+NOT_YET_PORTED = ("GMVAE", "GMVAE_spatial", "ConstrainedAE", "AAE",
+                  "ConstrainedAAE", "fAnoGAN", "AnoVAEGAN")
 
 
 def get_trainer(name: str) -> Type[base.BaseTrainer]:
