@@ -8,9 +8,18 @@ last line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
      kernel build from ``csrc/`` (nvcc, sm_90a) with its time;
   2. kernel vs plain: ``median_filter_3d_cuda`` must equal the plain
-     PyTorch median bit for bit at the serving shape (110, 128, 128) and at
-     ragged shapes, on uniform and on tied, signed data; warm times of both
-     by CUDA events (median of 20 runs);
+     PyTorch median at the serving shape (110, 128, 128) and at ragged
+     shapes, on uniform data, tied signed data and values spread over
+     e^+-80 with +-0.0, and at the serving shape on a served-like residual
+     map; warm times by CUDA events (median of 20 samples of one call
+     each) of the kernel on uniform data and on the served map, of the
+     plain version and of ``torch.median`` over the pre-built windows
+     (selection only, the ``library_ms`` yardstick; the port never calls
+     it); the kernel's times again with each sample spanning KERNEL_BATCH
+     back-to-back calls (``batched_ms``: the host's enqueue gap drops out);
+     the bytes bound;
+     ``median_select_reference`` on the uniform volume's windows on the
+     card: equal to the kernel, its mean and warp-max rounds;
   3. serve: a full-width ``AE`` workdir (128x128 slices, zDim 128, seeded
      Glorot init, bf16 compute) with a fixed calibrated threshold serves 3
      lesioned 110-slice phantoms through ``infer --device cuda``; the kernel
@@ -89,6 +98,7 @@ KINK_FLOOR = 3
 UPDATE_TOL = 0.25
 FREE_RUN_TOL = 1e-3
 TIMED_STEPS = 100
+KERNEL_BATCH = 10  # back-to-back kernel calls per pair of CUDA events
 STEP_PRESETS = ("VAE_Zimmerer", "ceVAE_Zimmerer", "AE_spatial", "CE")
 WARM_STEPS = 3
 # card-vs-CPU drift of the 150-step restoration, in restore_lr steps: a
@@ -106,8 +116,12 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def cuda_ms(fn, n=20, warmup=3):
-    """Median warm time of ``fn`` in ms, by CUDA events around each call."""
+def cuda_ms(fn, n=20, warmup=3, batch=1):
+    """Median warm time of one ``fn`` call in ms, by CUDA events: each of
+    the ``n`` samples spans ``batch`` back-to-back calls.  With ``batch``
+    > 1 the device's queue stays full, so the host's time to enqueue a call
+    (Python, checks, allocation, launch) drops out of a short kernel's
+    time."""
     import torch
 
     for _ in range(warmup):
@@ -118,10 +132,11 @@ def cuda_ms(fn, n=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -161,25 +176,94 @@ def phase_device():
     return build_s
 
 
+def spread_volume(shape, g):
+    """Values spread over e^-80..e^80 of both signs, with +0.0 and -0.0
+    mixed in: the order keys' sign flip, and many binades per window."""
+    import torch
+
+    mag = torch.exp((torch.rand(shape, generator=g, device=DEVICE) - 0.5)
+                    * 160.0)
+    sign = torch.where(torch.rand(shape, generator=g, device=DEVICE) < 0.5,
+                       -1.0, 1.0)
+    vol = mag * sign
+    u = torch.rand(shape, generator=g, device=DEVICE)
+    vol = torch.where(u < 0.1, torch.zeros_like(vol), vol)
+    return torch.where(u < 0.05, -torch.zeros_like(vol), vol)
+
+
+def served_residual():
+    """A residual map shaped like a served one, at SERVE_SHAPE: a lesioned
+    phantom through the port's residual pipeline up to the median (eroded
+    brainmask, hyperintensity prior), with a blurred copy of the input as
+    the reconstruction.  Mostly zero background."""
+    import numpy as np
+    import torch
+    from scipy import ndimage as ndi
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import Options
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
+        make_phantom,
+        normalize_volume,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        _eroded_mask,
+        _postprocess,
+        _zoom_volume,
+    )
+
+    S, H, W = SERVE_SHAPE
+    o = Options(medianFiltering=False)
+    ph = make_phantom(np.random.default_rng(SEED), size=H, n_slices=S,
+                      with_lesions=True)
+    v = normalize_volume(ph["volume"], method=o.normalizationMethod,
+                         upper_percentile=o.upperpercentile)
+    x = _zoom_volume(v, (H, W))
+    rec = ndi.gaussian_filter(x, sigma=(0.0, 1.5, 1.5)).astype(np.float32)
+    xt = torch.from_numpy(x).to(DEVICE)
+    diff = _postprocess(xt, torch.from_numpy(rec).to(DEVICE),
+                        _eroded_mask((xt > 0.05).float(), o),
+                        float(np.quantile(v, 0.9)), o)
+    return diff.contiguous()
+
+
+def median_windows(vol):
+    """The (S*H*W, 125) windows of a volume, 'reflect' borders, in the
+    kernel's output order (a warp's 32 outputs are 32 consecutive rows)."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops.median import (
+        _symmetric_pad,
+    )
+
+    p = _symmetric_pad(vol, 2)
+    return p.unfold(0, 5, 1).unfold(1, 5, 1).unfold(2, 5, 1).reshape(-1, 125)
+
+
 def phase_kernel():
+    """2. The median kernel against the plain version on every data set
+    and shape, its times (uniform and served map), its bound, the
+    selection-only library time and the selection rule's rounds."""
     import torch
 
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops.median import (
         median_filter_3d,
         median_filter_3d_cuda,
+        median_select_reference,
     )
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
     max_err = 0.0
     serve_vol = None
     for shape in (SERVE_SHAPE, *RAGGED_SHAPES):
-        uniform = torch.rand(shape, generator=g, device="cuda")
+        uniform = torch.rand(shape, generator=g, device=DEVICE)
         # ties, exact zeros and negative values: the order-key sign flip
         # and the bisection bracket on repeated keys
-        tied = (torch.floor(torch.rand(shape, generator=g, device="cuda") * 9)
-                / 8.0 - 0.5) * (torch.rand(shape, generator=g, device="cuda")
+        tied = (torch.floor(torch.rand(shape, generator=g, device=DEVICE) * 9)
+                / 8.0 - 0.5) * (torch.rand(shape, generator=g, device=DEVICE)
                                 > 0.4)
-        for name, vol in (("uniform", uniform), ("tied", tied)):
+        sets = [("uniform", uniform), ("tied", tied),
+                ("spread", spread_volume(shape, g))]
+        if shape == SERVE_SHAPE:
+            sets.append(("served", served_residual()))
+        for name, vol in sets:
             got = median_filter_3d_cuda(vol.contiguous())
             ref = median_filter_3d(vol)
             torch.cuda.synchronize()
@@ -190,12 +274,47 @@ def phase_kernel():
                   f"max|diff| {err}")
             print(f"[kernel] {shape} {name}: equal (max|diff| {err})")
         if shape == SERVE_SHAPE:
-            serve_vol = uniform
+            serve_vol, served = uniform, sets[-1][1]
+    print(f"[kernel] served map: {100 * float((served == 0).float().mean()):.1f}"
+          " % zero voxels")
     plain_ms = cuda_ms(lambda: median_filter_3d(serve_vol))
+    # one event pair per call, the host's enqueue gap included
     kernel_ms = cuda_ms(lambda: median_filter_3d_cuda(serve_vol))
-    print(f"[kernel] median 5^3 at {SERVE_SHAPE}: kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (CUDA events, median of 20)")
-    return max_err, kernel_ms, plain_ms
+    served_ms = cuda_ms(lambda: median_filter_3d_cuda(served))
+    batched_ms = cuda_ms(lambda: median_filter_3d_cuda(serve_vol),
+                         batch=KERNEL_BATCH)
+    served_batched_ms = cuda_ms(lambda: median_filter_3d_cuda(served),
+                                batch=KERNEL_BATCH)
+    # least time: each input byte read once, each output byte written once
+    # at the H100's 3.35 TB/s; a median does no floating-point products
+    bound_ms = 2 * serve_vol.numel() * 4 / 3.35e12 * 1e3
+    windows = median_windows(serve_vol)
+    library_ms = cuda_ms(lambda: torch.median(windows, dim=-1))
+    med, rounds = median_select_reference(windows)
+    check(torch.equal(med.view(SERVE_SHAPE), median_filter_3d_cuda(serve_vol)),
+          "median_select_reference != kernel on the uniform volume")
+    check(int(rounds.max()) <= 32, f"{int(rounds.max())} rounds")
+    mean_rounds = float(rounds.double().mean())
+    warp_rounds = float(rounds.view(-1, 32).max(dim=1).values.double().mean())
+    del windows, med, rounds
+    print(f"[kernel] median 5^3 at {SERVE_SHAPE} (CUDA events, median of "
+          f"20 samples of one call): kernel {kernel_ms:.4f} ms on uniform "
+          f"data, {served_ms:.4f} ms on the served map; plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us (bytes), "
+          f"{100 * bound_ms / kernel_ms:.2f} % of it; library (selection "
+          f"only: torch.median over the pre-built (S*H*W, 125) windows) "
+          f"{library_ms:.4f} ms")
+    print(f"[kernel] batched (median of 20 samples of {KERNEL_BATCH} "
+          f"back-to-back calls, per call): kernel {batched_ms:.4f} ms on "
+          f"uniform data ({100 * bound_ms / batched_ms:.2f} % of the bound), "
+          f"{served_batched_ms:.4f} ms on the served map")
+    print(f"[kernel] selection rounds on the uniform volume's windows: mean "
+          f"{mean_rounds:.3f}, warp max {warp_rounds:.3f}")
+    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
+                served_ms=served_ms, batched_ms=batched_ms,
+                served_batched_ms=served_batched_ms, bound_ms=bound_ms,
+                library_ms=library_ms, rounds=mean_rounds,
+                warp_rounds=warp_rounds)
 
 
 def make_workdir(base):
@@ -1344,7 +1463,7 @@ def main():
             torch.backends.cuda.matmul.allow_tf32)
 
     build_s = timed_phase("1 device", phase_device)
-    max_err, kernel_ms, plain_ms = timed_phase("2 kernel", phase_kernel)
+    kern = timed_phase("2 kernel", phase_kernel)
     base = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(base, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=base)
@@ -1376,8 +1495,9 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(os.path.join(base, "timing"), ignore_errors=True)
     check("jax" not in sys.modules, "jax was imported")
-    print(f"[summary] build {build_s:.2f} s, median kernel {kernel_ms:.4f} ms "
-          f"vs plain {plain_ms:.4f} ms, warm detect {detect_ms:.3f} ms, "
+    print(f"[summary] build {build_s:.2f} s, median kernel {kern['ms']:.4f} "
+          f"ms (served map {kern['served_ms']:.4f} ms) vs plain "
+          f"{kern['plain_ms']:.4f} ms, warm detect {detect_ms:.3f} ms, "
           f"warm train {sps:.1f} slices/s (device busy "
           f"{100 * busy['AE train']:.1f} %), warm evaluate() "
           f"{eval_ms:.1f} ms for the TEST cohort (device busy "
@@ -1399,9 +1519,15 @@ def main():
         "replaces": "unsupervised_anomaly_detection_brain_mri_tpu/ops/"
                     "pallas_median.py:94",
         "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": kern["library_ms"],
+        "served_ms": kern["served_ms"],
+        "batched_ms": kern["batched_ms"],
+        "served_batched_ms": kern["served_batched_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,14 +8,14 @@ import numpy as np
 import pytest
 import torch
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config
-from unsupervised_anomaly_detection_brain_mri_tpu.data.formats import (
+from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.formats import (
     write_nifti,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
     make_phantom,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
 
 SMALL = ["-w", "32", "-g", "32", "-z", "16", "-b", "8", "-s", "0", "-e",
          "16", "--precision", "float32"]
@@ -105,7 +105,7 @@ def test_infer_serves_the_trained_workdir(trained, tmp_path):
 def test_resumed_run_trains_nothing_more(trained, capsys):
     """A second fit in the same workdir resumes at epoch 2 of 2 and holds
     the weights the CLI saved."""
-    from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
         SYNTH,
         SyntheticOptions,
     )
@@ -115,7 +115,7 @@ def test_resumed_run_trains_nothing_more(trained, capsys):
 
     _, wd, _ = trained
     config = Config.from_json((wd / "config.json").read_text())
-    t = get_trainer("AE")(config, workdir=str(wd))
+    t = get_trainer("AE")(config, workdir=str(wd), device="cpu")
     t.fit(SYNTH(SyntheticOptions(numPatients=3, imageSize=32, numSlices=16,
                                  targetSize=32)))
     out = capsys.readouterr().out

@@ -17,9 +17,13 @@ from test_golden_parity import (
     make_patients,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.config import (
-    Config,
-    Options,
-    PathConfig,
+    Config as JaxConfig,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu.config import (
+    Options as JaxOptions,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu.config import (
+    PathConfig as JaxPathConfig,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
     SYNTH,
@@ -33,6 +37,11 @@ from unsupervised_anomaly_detection_brain_mri_tpu.eval import (
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.train import (
     get_trainer as jax_get_trainer,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+    Config,
+    Options,
+    PathConfig,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
     evaluate as E,
@@ -68,12 +77,17 @@ def _cfg():
                   compute_dtype="float32")
 
 
+def _jax(cfg):
+    """The JAX package's Config with the same fields as the port's."""
+    return JaxConfig.from_json(cfg.to_json())
+
+
 @pytest.fixture(scope="module")
 def pair():
     """A JAX AE at 64x64 with randomised BN statistics, the port's AE on
     the same converted weights, and the lesioned cohort."""
     cfg = _cfg()
-    jt = jax_get_trainer("AE")(cfg)
+    jt = jax_get_trainer("AE")(_jax(cfg))
     js = jt.init_state()
     rng = np.random.default_rng(0)
 
@@ -101,6 +115,11 @@ def _options(tmp, **kw):
                    **kw)
 
 
+def _jax_options(tmp, **kw):
+    return JaxOptions(paths=JaxPathConfig(sample_dir=str(tmp)),
+                      erosionIterations=6, **kw)
+
+
 def _files(root):
     out = set()
     for dirpath, _, names in os.walk(root):
@@ -117,8 +136,8 @@ def _files(root):
 ], ids=["bestdice_prior", "bestdice_artifacts", "numeric_threshold"])
 def test_evaluate_matches_jax(pair, tmp_path, kw):
     cfg, jt, js, tt, ds = pair
-    ref = jax_evaluate(ds, jt, js, _options(tmp_path / "jax", **kw), cfg,
-                       description="d")
+    ref = jax_evaluate(ds, jt, js, _jax_options(tmp_path / "jax", **kw),
+                       _jax(cfg), description="d")
     got = E.evaluate(ds, tt, _options(tmp_path / "torch", **kw), cfg,
                      description="d")
     assert set(got) == set(ref)
@@ -145,7 +164,9 @@ def test_evaluate_matches_jax(pair, tmp_path, kw):
 def test_threshold_transfer_matches_jax(pair, tmp_path):
     cfg, jt, js, tt, ds = pair
     opts = _options(tmp_path, applyHyperIntensityPrior=False)
-    ref = jax_threshold_transfer([ds], jt, js, opts, cfg)
+    ref = jax_threshold_transfer(
+        [ds], jt, js, _jax_options(tmp_path, applyHyperIntensityPrior=False),
+        _jax(cfg))
     got = E.determine_threshold_on_labeled_patients([ds], tt, opts, cfg)
     np.testing.assert_allclose(got, ref, rtol=CURVE_TOL, atol=1e-7)
 
@@ -206,10 +227,12 @@ def test_volume_selection_matches_jax(tmp_path, slice_end, truncate_last):
     ds = GoldenDataset(patients, slice_start=2, slice_end=slice_end)
     cfg = Config(trainer="AE", model="autoencoder", batchsize=4,
                  outputWidth=64, outputHeight=64, compute_dtype="float32")
-    opts = {name: Options(paths=PathConfig(sample_dir=str(tmp_path / name)),
+    opts = {name: options(paths=path(sample_dir=str(tmp_path / name)),
                           **CASES["fixed_threshold"])
-            for name in ("jax", "torch")}
-    ref = jax_evaluate(ds, GoldenTrainer(), None, opts["jax"], cfg)
+            for name, options, path in (
+                ("jax", JaxOptions, JaxPathConfig),
+                ("torch", Options, PathConfig))}
+    ref = jax_evaluate(ds, GoldenTrainer(), None, opts["jax"], _jax(cfg))
     got = E.evaluate(ds, _PortGoldenTrainer(), opts["torch"], cfg)
     assert got["slices_per_patient"] == ref["slices_per_patient"] == (
         [10, 10] if truncate_last else [12, 12, 12])
@@ -262,7 +285,7 @@ def vae_pairs():
     for rate in (0.0, 0.5):
         cfg = _cfg().replace(trainer="VAE", model="variational_autoencoder",
                              dropout_rate=rate)
-        jt = jax_get_trainer("VAE")(cfg)
+        jt = jax_get_trainer("VAE")(_jax(cfg))
         js = jt.init_state()
         rng = np.random.default_rng(1)
 
@@ -316,7 +339,8 @@ def test_mc_dropout_evaluation_matches_jax(pair, vae_pairs, tmp_path,
     monkeypatch.setattr(tt, "reconstruct_device", torch_call)
     kw = dict(threshold=None, applyHyperIntensityPrior=False,
               numMonteCarloSamples=3)
-    ref = jax_evaluate(ds, jt, js, _options(tmp_path / "jax", **kw), cfg)
+    ref = jax_evaluate(ds, jt, js, _jax_options(tmp_path / "jax", **kw),
+                       _jax(cfg))
     got = E.evaluate(ds, tt, _options(tmp_path / "torch", **kw), cfg)
     n_test = len(ds.patients_of("TEST"))
     assert calls == {"jax": 3 * n_test, "torch": 3 * n_test}
@@ -353,7 +377,8 @@ def test_mc_dropout_evaluation_agrees_with_jax_in_distribution(
     ds = pair[4]
     kw = dict(threshold=None, applyHyperIntensityPrior=False,
               numMonteCarloSamples=8)
-    ref = jax_evaluate(ds, jt, js, _options(tmp_path / "jax", **kw), cfg)
+    ref = jax_evaluate(ds, jt, js, _jax_options(tmp_path / "jax", **kw),
+                       _jax(cfg))
     got = E.evaluate(ds, tt, _options(tmp_path / "torch", **kw), cfg)
     rec_got, rec_ref = got["reconstructions"], ref["reconstructions"]
     np.testing.assert_array_equal(rec_got == 0, rec_ref == 0)  # the mask

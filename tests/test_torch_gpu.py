@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch import Config, Options
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import PathConfig
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import make_phantom
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
     AnomalyDetector,
@@ -28,25 +29,60 @@ def cuda():
     return torch.device("cuda")
 
 
-def _vol(shape, seed, tied):
+def _vol(shape, seed, kind):
+    """The median's data sets: uniform; tied with exact +-0.0 and
+    negatives; spread over e^-80..e^80 of both signs with +-0.0; constant
+    (every window all-equal); two-level, where many windows hold exactly 62
+    or 63 keys <= the lower level."""
     rng = np.random.default_rng(seed)
-    if tied:  # repeated values, exact zeros and negatives
+    if kind == "uniform":
+        return rng.uniform(size=shape).astype(np.float32)
+    if kind == "tied":
         v = (np.floor(rng.uniform(size=shape) * 9) / 8.0 - 0.5)
-        return (v * (rng.uniform(size=shape) > 0.4)).astype(np.float32)
-    return rng.uniform(size=shape).astype(np.float32)
+        v = (v * (rng.uniform(size=shape) > 0.4)).astype(np.float32)
+        v[rng.uniform(size=shape) < 0.2] = -0.0
+        return v
+    if kind == "spread":
+        v = (np.exp(rng.uniform(-80, 80, size=shape))
+             * rng.choice([-1.0, 1.0], size=shape)).astype(np.float32)
+        u = rng.uniform(size=shape)
+        v[u < 0.1] = 0.0
+        v[u < 0.05] = -0.0
+        return v
+    if kind == "constant":
+        return np.full(shape, 0.3, np.float32)
+    if kind == "two_level":
+        return np.where(rng.uniform(size=shape) < 0.5, -1.5, 2.5).astype(
+            np.float32)
+    raise ValueError(kind)
+
+
+KINDS = ["uniform", "tied", "spread", "constant", "two_level"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", [(110, 128, 128), (7, 37, 45), (2, 1, 5),
                                    (1, 1, 1)])
-def test_cuda_kernel_equals_plain(cuda, shape, tied):
-    vol = torch.from_numpy(_vol(shape, 5, tied)).to(cuda)
+def test_cuda_kernel_equals_plain(cuda, shape, kind):
+    vol = torch.from_numpy(_vol(shape, 5, kind)).to(cuda)
     before = M.LAUNCHES
     got = M.median_filter_3d_auto(vol, 5)
     torch.cuda.synchronize()
     assert M.LAUNCHES == before + 1
     assert torch.equal(got, M.median_filter_3d(vol))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_agrees_with_the_selection_rule(cuda):
+    """The kernel's output equals ``median_select_reference`` run on the
+    card over the volume's windows, whose rounds stay within 32."""
+    vol = torch.from_numpy(_vol((6, 16, 32), 6, "uniform")).to(cuda)
+    windows = M._symmetric_pad(vol, 2).unfold(0, 5, 1).unfold(
+        1, 5, 1).unfold(2, 5, 1).reshape(-1, 125)
+    med, rounds = M.median_select_reference(windows)
+    assert torch.equal(M.median_filter_3d_cuda(vol), med.view(vol.shape))
+    assert int(rounds.max()) <= 32
 
 
 @pytest.mark.gpu
@@ -65,7 +101,7 @@ def test_detect_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = Config(trainer="AE", model="autoencoder", outputWidth=32,
                  outputHeight=32, zDim=16, compute_dtype="float32")
-    trainer = get_trainer("AE")(cfg, workdir=str(tmp_path))
+    trainer = get_trainer("AE")(cfg, workdir=str(tmp_path), device="cuda")
     trainer.init_state()
     trainer.save_checkpoint()
     save_calibration(str(tmp_path), 0.1, 0.0,
@@ -80,7 +116,7 @@ def test_detect_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
 
 
 def _small_cohort(with_lesions):
-    from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
         SYNTH,
         SyntheticOptions,
     )
@@ -115,7 +151,6 @@ def test_fit_on_card_draws_dropout_on_the_card_and_resumes(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_evaluate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
-    from unsupervised_anomaly_detection_brain_mri_tpu.config import PathConfig
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
         evaluate as E,
     )
@@ -201,7 +236,6 @@ def test_batched_restoration_on_card_equals_per_volume_calls(cuda):
 def test_mc_evaluate_on_card(cuda, tmp_path):
     """MC evaluation on the card: one median launch per volume (not per
     sample), finite variances that are 0 outside the eroded mask."""
-    from unsupervised_anomaly_detection_brain_mri_tpu.config import PathConfig
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
         evaluate as E,
     )

@@ -1,6 +1,7 @@
 """The port's 5^3 median (ops/median.py) against scipy, the JAX XLA path and
-the Pallas kernel in interpret mode (the CUDA kernel itself is held against
-the plain version on the card by tests/test_torch_gpu.py)."""
+the Pallas kernel in interpret mode, and the CUDA kernel's selection rule
+(``median_select_reference``) against a sort (the CUDA kernel itself is held
+against the plain version on the card by tests/test_torch_gpu.py)."""
 
 import numpy as np
 import pytest
@@ -111,3 +112,98 @@ def test_kernel_source_exports_the_bound_symbol():
     assert 'extern "C" int uad_median5_f32(' in src
     assert "pallas_median.py" in src  # names the TPU kernel it replaces
 
+
+
+# ---------------------------------------------------------------------------
+# the kernel's selection rule
+
+
+def _windows(kind, n=4096, seed=0):
+    """(n, 125) float32 window values of one data set."""
+    rng = np.random.default_rng(seed)
+    shape = (n, 125)
+    if kind == "uniform":
+        return rng.uniform(size=shape).astype(np.float32)
+    if kind == "tied_signed_zeros":
+        v = (np.floor(rng.uniform(size=shape) * 9) / 8.0 - 0.5)
+        v = (v * (rng.uniform(size=shape) > 0.4)).astype(np.float32)
+        v[rng.uniform(size=shape) < 0.2] = -0.0
+        return v
+    if kind == "spread":  # e^-80..e^80, both signs, +-0.0 mixed in
+        v = (np.exp(rng.uniform(-80, 80, size=shape))
+             * rng.choice([-1.0, 1.0], size=shape)).astype(np.float32)
+        u = rng.uniform(size=shape)
+        v[u < 0.1] = 0.0
+        v[u < 0.05] = -0.0
+        return v
+    if kind == "all_equal":
+        return np.repeat(rng.normal(size=(n, 1)), 125, axis=1).astype(
+            np.float32)
+    if kind in ("62_below", "63_below"):
+        # exactly 62 (or 63) keys <= the largest of a low group, the rest in
+        # a high group: the median is the high group's smallest key (or the
+        # low group's largest)
+        k = 62 if kind == "62_below" else 63
+        low = rng.uniform(-3.0, -1.0, size=(n, k))
+        high = rng.uniform(1.0, 3.0, size=(n, 125 - k))
+        if n > 1:  # some windows with the groups tied to one value each
+            low[: n // 4] = -2.0
+            high[: n // 8] = 2.0
+        v = np.concatenate([low, high], axis=1)
+        return rng.permuted(v, axis=1).astype(np.float32)
+    raise ValueError(kind)
+
+
+SELECT_KINDS = ["uniform", "tied_signed_zeros", "spread", "all_equal",
+                "62_below", "63_below"]
+
+
+@pytest.mark.parametrize("kind", SELECT_KINDS)
+def test_select_reference_equals_sort(kind):
+    w = _windows(kind, seed=SELECT_KINDS.index(kind))
+    med, rounds = M.median_select_reference(torch.from_numpy(w))
+    assert med.dtype == torch.float32 and rounds.dtype == torch.int64
+    np.testing.assert_array_equal(med.numpy(), np.sort(w, axis=1)[:, 62])
+    assert int(rounds.min()) >= 0 and int(rounds.max()) <= 32
+    if kind == "all_equal":
+        assert not rounds.any()  # a constant window takes no round
+
+
+@pytest.mark.parametrize("kind", ["uniform", "tied_signed_zeros", "spread"])
+def test_select_reference_equals_scipy_on_volumes(kind):
+    """The rule over every window of a volume ('reflect' borders, the
+    windows as chip_smoke.py builds them) is scipy's median filter."""
+    vol = _windows(kind, n=6 * 9 * 11 // 125 + 1, seed=5).ravel()[
+        : 6 * 9 * 11].reshape(6, 9, 11)
+    t = torch.from_numpy(vol)
+    windows = M._symmetric_pad(t, 2).unfold(0, 5, 1).unfold(1, 5, 1).unfold(
+        2, 5, 1).reshape(-1, 125)
+    med, _ = M.median_select_reference(windows)
+    np.testing.assert_array_equal(
+        med.view(vol.shape).numpy(),
+        ndi.median_filter(vol, size=5, mode="reflect"))
+
+
+def test_element_snapping_takes_few_rounds_on_uniform_data():
+    """Plain key-space bisection takes ~26 rounds on uniform windows; the
+    snapping rule ~6.7 on average and ~9.4 for the slowest of 32."""
+    _, rounds = M.median_select_reference(torch.from_numpy(
+        _windows("uniform", n=32 * 256, seed=9)))
+    assert 5.5 < float(rounds.double().mean()) < 8.0
+    warp_max = rounds.view(-1, 32).max(dim=1).values.double().mean()
+    assert 8.0 < float(warp_max) < 11.0
+
+
+def test_order_keys_preserve_float_order():
+    v = np.array([-np.inf, -3e38, -1.5, -1e-45, -0.0, 0.0, 1e-45, 2.0,
+                  3e38, np.inf], np.float32)
+    keys = M._to_key(torch.from_numpy(v))
+    assert bool((keys[1:] > keys[:-1]).all())  # -0.0 sorts before +0.0
+    assert int(keys.min()) >= 0 and int(keys.max()) <= 0xFFFFFFFF
+    back = M._from_key(keys).numpy()
+    assert back.tobytes() == v.tobytes()
+
+
+def test_select_reference_rejects_other_shapes():
+    with pytest.raises(ValueError, match="125"):
+        M.median_select_reference(torch.zeros(4, 27))

@@ -8,13 +8,16 @@ import pytest
 import torch
 from flax import linen as fnn
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config
+from unsupervised_anomaly_detection_brain_mri_tpu.config import (
+    Config as JaxConfig,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu.train import (
     get_trainer as jax_get_trainer,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.train.state import (
     count_params as jax_count_params,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import layers
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
     params_from_flax,
@@ -51,7 +54,8 @@ def _randomised_batch_stats(batch_stats, rng):
 @pytest.fixture(scope="module", params=[32, 64])
 def jax_ae(request):
     size = request.param
-    trainer = jax_get_trainer("AE")(_config(size))
+    trainer = jax_get_trainer("AE")(
+        JaxConfig.from_json(_config(size).to_json()))
     state = trainer.init_state()
     params = jax.device_get(state.params)
     stats = _randomised_batch_stats(jax.device_get(state.batch_stats),
@@ -190,8 +194,8 @@ def test_unported_trainers_raise():
 
 def test_init_state_is_seeded_glorot():
     cfg = _config(32)
-    t1 = trainer_registry.get_trainer("AE")(cfg)
-    t2 = trainer_registry.get_trainer("AE")(cfg)
+    t1 = trainer_registry.get_trainer("AE")(cfg, device="cpu")
+    t2 = trainer_registry.get_trainer("AE")(cfg, device="cpu")
     s1 = {k: v.clone() for k, v in t1.init_state().state_dict().items()}
     s2 = t2.init_state(torch.Generator().manual_seed(cfg.seed)).state_dict()
     assert all(torch.equal(s1[k], s2[k]) for k in s1)

@@ -34,6 +34,12 @@ from unsupervised_anomaly_detection_brain_mri_tpu.train import (
     get_trainer as jax_get_trainer,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+    Config as PortConfig,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+    Options as PortOptions,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
     inference,
 )
@@ -50,6 +56,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 OPTIONS = Options(erosionIterations=1, minLesionSize=2)
+PORT_OPTIONS = PortOptions(erosionIterations=1, minLesionSize=2)
 
 
 def _config():
@@ -115,7 +122,8 @@ def test_detect_matches_jax(converted, size, with_brainmask):
     ref = jax_det.detect(ph["volume"], brainmask=bm, threshold=t)
 
     det = inference.AnomalyDetector.from_workdir(wd, threshold=t,
-                                                 options=OPTIONS, device="cpu")
+                                                 options=PORT_OPTIONS,
+                                                 device="cpu")
     got = det.detect(ph["volume"], brainmask=bm)
     assert got["anomaly_map"].shape == (12, 32, 32)
     np.testing.assert_allclose(got["reconstruction"], ref["reconstruction"],
@@ -147,8 +155,9 @@ def test_mc_dropout_serving_matches_jax(converted, tmp_path, rate):
     torch.save(torch.load(os.path.join(wd, CHECKPOINT), weights_only=True),
                tmp_path / CHECKPOINT)
     (tmp_path / "config.json").write_text(cfg.to_json())
-    det = inference.AnomalyDetector.from_workdir(str(tmp_path),
-                                                 options=opts, device="cpu")
+    det = inference.AnomalyDetector.from_workdir(
+        str(tmp_path), options=PORT_OPTIONS.replace(numMonteCarloSamples=8),
+        device="cpu")
     vol = make_phantom(np.random.default_rng(1), 32, 12, True)["volume"]
     ref, got = jax_det.detect(vol), det.detect(vol)
     assert set(got) == set(ref)
@@ -170,8 +179,8 @@ def test_mc_dropout_serving_matches_jax(converted, tmp_path, rate):
 
 def test_calibration_file_is_shared_with_jax(converted, tmp_path):
     wd = converted[3]
-    opts = Options(erosionIterations=2, minLesionSize=3,
-                   applyHyperIntensityPrior=False)
+    opts = PortOptions(erosionIterations=2, minLesionSize=3,
+                       applyHyperIntensityPrior=False)
     inference.save_calibration(str(tmp_path), 0.42, 0.5, opts, "SYNTH", 1)
     assert (jax_inference.load_calibration(str(tmp_path))
             == inference.load_calibration(str(tmp_path)))
@@ -182,7 +191,7 @@ def test_calibration_file_is_shared_with_jax(converted, tmp_path):
         assert det.options.erosionIterations == 2
         assert det.options.applyHyperIntensityPrior is False
         det2 = inference.AnomalyDetector.from_workdir(
-            wd, threshold=0.9, options=Options(erosionIterations=5),
+            wd, threshold=0.9, options=PortOptions(erosionIterations=5),
             device="cpu")
         assert det2.threshold == 0.9 and det2.options.erosionIterations == 5
     finally:
@@ -216,7 +225,8 @@ def test_tool_converts_vae_family_workdirs(trainer, model, tmp_path):
     jt.save_checkpoint(js, 1)
     (tmp_path / "tv_lambda.json").write_text('{"tv_lambda_value": 0.3}')
     _load_tool().convert(str(tmp_path))
-    port = get_trainer(trainer)(cfg, workdir=str(tmp_path))
+    port = get_trainer(trainer)(PortConfig.from_json(cfg.to_json()),
+                                workdir=str(tmp_path), device="cpu")
     assert port.load_checkpoint() is not None
     assert port.tv_lambda_value == 0.3
     want = params_from_flax(jax.device_get(js.params),
@@ -310,7 +320,7 @@ assert rc == 0
 wd = tempfile.mkdtemp()
 cfg = uad.Config(outputWidth=32, outputHeight=32, zDim=16,
                  compute_dtype="float32")
-t = get_trainer("AE")(cfg, workdir=wd)
+t = get_trainer("AE")(cfg, workdir=wd, device="cpu")
 t.init_state()
 t.save_checkpoint()
 det = AnomalyDetector.from_workdir(wd, threshold=0.1, device="cpu")
@@ -318,7 +328,8 @@ res = det.detect(make_phantom(np.random.default_rng(0), 32, 8, True)["volume"])
 assert res["anomaly_map"].shape == (8, 32, 32) and median.LAUNCHES == 0
 banned = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "orbax"))
+                                       "orbax", "unsupervised_anomaly_"
+                                       "detection_brain_mri_tpu"))
 print("BANNED", banned)
 sys.exit(1 if banned else 0)
 """

@@ -21,13 +21,7 @@ from test_torch_oracle import (
     torch_gmvae_spatial,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.config import (
-    Config,
-    Optimizer,
-    Options,
-)
-from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
-    SYNTH,
-    SyntheticOptions,
+    Config as JaxConfig,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.train import (
     engine as jax_engine,
@@ -40,6 +34,15 @@ from unsupervised_anomaly_detection_brain_mri_tpu.train import (
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.train import (
     state as jax_state,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+    Config,
+    Optimizer,
+    Options,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
+    SYNTH,
+    SyntheticOptions,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import layers
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
@@ -78,6 +81,11 @@ def _one_torch_thread():
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
+
+
+def _jax(cfg):
+    """The JAX package's Config with the same fields as the port's."""
+    return JaxConfig.from_json(cfg.to_json())
 
 
 def _close(jax_val, torch_val, **tol):
@@ -165,9 +173,9 @@ def test_optimizer_matches_optax_over_five_steps(optimizer):
               for k, v in params.items()} for _ in range(5)]
     cfg = Config(learningrate=1e-2)
     if optimizer == "gan_adam":
-        tx = jax_state.gan_adam(cfg)
+        tx = jax_state.gan_adam(_jax(cfg))
     else:
-        tx = jax_state.make_optimizer(cfg.replace(optimizer=optimizer))
+        tx = jax_state.make_optimizer(_jax(cfg.replace(optimizer=optimizer)))
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
     opt_state = tx.init(jparams)
     tparams = {k: torch.nn.Parameter(_t(v).clone()) for k, v in params.items()}
@@ -221,7 +229,7 @@ def test_autoencoder_train_mode_call_matches_flax():
     """One train-mode forward of the whole AE on the same weights: outputs
     and every BatchNorm's updated running mean and variance."""
     cfg = _cfg()
-    jt = jax_get_trainer("AE")(cfg)
+    jt = jax_get_trainer("AE")(_jax(cfg))
     js = jt.init_state()
     x = np.random.default_rng(1).uniform(size=(2, 32, 32, 1)).astype(
         np.float32)
@@ -230,7 +238,7 @@ def test_autoencoder_train_mode_call_matches_flax():
         dropout=False, mutable=["batch_stats"])
     want = params_from_flax(jax.device_get(js.params),
                             jax.device_get(mutated["batch_stats"]))
-    tt = get_trainer("AE")(cfg)
+    tt = get_trainer("AE")(cfg, device="cpu")
     tt.model.load_state_dict(params_from_flax(
         jax.device_get(js.params), jax.device_get(js.batch_stats)))
     tt.model.train()
@@ -295,12 +303,12 @@ def _setup(start_steps):
     idxs = engine.epoch_indices(np.random.default_rng((cfg.seed + 1, 0)),
                                 len(pool), cfg.batchsize)
     idxs = np.concatenate([idxs, idxs[::-1]])
-    jt = jax_get_trainer("AE")(cfg)
+    jt = jax_get_trainer("AE")(_jax(cfg))
     jstate = jt.init_state()
     jstep = jax.jit(jt._build_train_step())
     for b in range(start_steps):
         jstate, _ = jstep(jstate, {"x": jnp.asarray(pool[idxs[b]])})
-    tt = get_trainer("AE")(cfg)
+    tt = get_trainer("AE")(cfg, device="cpu")
     tt.init_state()
     _load_jax_state(tt, jstate)
     return cfg, pool, idxs, jstep, jstate, tt
@@ -408,10 +416,12 @@ def _state(trainer):
 def test_resume_after_killed_epoch_equals_uninterrupted(tmp_path):
     cfg = _cfg(numEpochs=3, dropout_rate=0.2)
     ds = _dataset()
-    full = get_trainer("AE")(cfg, workdir=str(tmp_path / "full"))
+    full = get_trainer("AE")(cfg, workdir=str(tmp_path / "full"),
+                             device="cpu")
     full.fit(ds)
 
-    killed = get_trainer("AE")(cfg, workdir=str(tmp_path / "killed"))
+    killed = get_trainer("AE")(cfg, workdir=str(tmp_path / "killed"),
+                               device="cpu")
     calls = {"n": 0}
     original = killed.train_step
 
@@ -424,7 +434,8 @@ def test_resume_after_killed_epoch_equals_uninterrupted(tmp_path):
     killed.train_step = dying_step
     with pytest.raises(KeyboardInterrupt):
         killed.fit(ds)
-    resumed = get_trainer("AE")(cfg, workdir=str(tmp_path / "killed"))
+    resumed = get_trainer("AE")(cfg, workdir=str(tmp_path / "killed"),
+                                device="cpu")
     resumed.fit(ds)
     assert resumed.step == full.step
     a, b = _state(full), _state(resumed)
@@ -438,7 +449,7 @@ def test_resume_after_killed_epoch_equals_uninterrupted(tmp_path):
 def test_resume_recognises_a_triggered_early_stop(tmp_path, capsys):
     cfg = _cfg(numEpochs=2)
     wd = str(tmp_path)
-    first = get_trainer("AE")(cfg, workdir=wd)
+    first = get_trainer("AE")(cfg, workdir=wd, device="cpu")
     first.fit(_dataset())
     curves = tmp_path / "curves.json"
     hist = json.loads(curves.read_text())
@@ -447,7 +458,7 @@ def test_resume_recognises_a_triggered_early_stop(tmp_path, capsys):
             h["loss"] = 1.0 if h["epoch"] == 0 else 2.0
     curves.write_text(json.dumps(hist))
     t = get_trainer("AE")(cfg.replace(numEpochs=5, earlyStoppingPatience=1),
-                          workdir=wd)
+                          workdir=wd, device="cpu")
     t.fit(_dataset())
     assert "already triggered" in capsys.readouterr().out
     assert t.step == first.step
@@ -457,7 +468,7 @@ def test_resume_recognises_a_triggered_early_stop(tmp_path, capsys):
 
 def test_checkpoints_and_sidecars(tmp_path):
     cfg = _cfg(numEpochs=3, keepCheckpoints=2)
-    t = get_trainer("AE")(cfg, workdir=str(tmp_path))
+    t = get_trainer("AE")(cfg, workdir=str(tmp_path), device="cpu")
     t.fit(_dataset())
     ckpts = sorted(p.name for p in (tmp_path / "torch" / "ckpt").iterdir())
     assert ckpts == ["epoch_000002.pt", "epoch_000003.pt"]
@@ -466,7 +477,7 @@ def test_checkpoints_and_sidecars(tmp_path):
     curves = np.load(tmp_path / "Curves.npy", allow_pickle=True).item()
     assert len(curves["TRAIN/loss"]) == 3 and len(curves["VAL/loss"]) == 3
     (tmp_path / "tv_lambda.json").write_text('{"tv_lambda_value": 0.7}')
-    served = get_trainer("AE")(cfg, workdir=str(tmp_path))
+    served = get_trainer("AE")(cfg, workdir=str(tmp_path), device="cpu")
     assert served.load_checkpoint() is not None
     assert served.tv_lambda_value == 0.7
     x = _dataset().slices("VAL")[:3]
@@ -483,7 +494,7 @@ def test_streaming_pool_equals_resident_pool(tmp_path):
     for name, opts in (("resident", Options()),
                        ("stream", Options(streamPool=True,
                                           streamPoolChunkBatches=2))):
-        t = get_trainer("AE")(cfg, opts)
+        t = get_trainer("AE")(cfg, opts, device="cpu")
         t.fit(ds)
         runs[name] = (t, _state(t))
     assert runs["stream"][0].streamed_last_epoch
@@ -495,7 +506,7 @@ def test_streaming_pool_equals_resident_pool(tmp_path):
 
 def test_instance_noise_comes_from_the_trainer_generator():
     cfg = _cfg()
-    t = get_trainer("AE")(cfg, Options(addInstanceNoise=True))
+    t = get_trainer("AE")(cfg, Options(addInstanceNoise=True), device="cpu")
     batch = {"x": torch.zeros(2, 32, 32, 1)}
     noisy = t.maybe_add_instance_noise(batch, train=True)["x"]
     assert 0.005 < float(noisy.std()) < 0.02
@@ -508,6 +519,7 @@ def test_instance_noise_comes_from_the_trainer_generator():
 
 def test_profile_dir_traces_the_first_epoch(tmp_path):
     t = get_trainer("AE")(_cfg(numEpochs=2),
-                          Options(profileDir=str(tmp_path / "prof")))
+                          Options(profileDir=str(tmp_path / "prof")),
+                          device="cpu")
     t.fit(_dataset())
     assert sorted(os.listdir(tmp_path / "prof")) == ["epoch_0.trace.json"]

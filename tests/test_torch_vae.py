@@ -19,10 +19,11 @@ from flax import linen as fnn
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config
-from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (
-    SYNTH,
-    SyntheticOptions,
+from unsupervised_anomaly_detection_brain_mri_tpu.config import (
+    Config as JaxConfig,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu.data import (
+    synthetic as jax_synthetic,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu.models import (
     get_model as jax_get_model,
@@ -42,6 +43,8 @@ from unsupervised_anomaly_detection_brain_mri_tpu.train import (
 from unsupervised_anomaly_detection_brain_mri_tpu.train.state import (
     count_params as jax_count_params,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import synthetic
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
     layers,
     vae,
@@ -100,6 +103,11 @@ def _cfg(model, size=32, **kw):
     return Config(**base)
 
 
+def _jax(cfg):
+    """The JAX package's Config with the same fields as the port's."""
+    return JaxConfig.from_json(cfg.to_json())
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -151,7 +159,7 @@ def test_model_matches_flax(preset, train):
     (the ceVAE's encoder and decoder run twice, over x and the masked
     x_ce, and Flax moves the statistics twice in that order)."""
     cfg = _cfg(MODELS[preset])
-    jm, spec = jax_get_model(cfg, jnp.float32)
+    jm, spec = jax_get_model(_jax(cfg), jnp.float32)
     rng = np.random.default_rng(sorted(MODELS).index(preset))
     x = rng.uniform(size=(3, 32, 32, 1)).astype(np.float32)
     args = (x, x * (rng.uniform(size=x.shape) > 0.3)) if spec.takes_context \
@@ -200,7 +208,7 @@ def test_parameter_count_matches_jax(preset):
     side)."""
     for size in (32, 128):
         cfg = _cfg(MODELS[preset], size, zDim=128)
-        jm, spec = jax_get_model(cfg, jnp.float32)
+        jm, spec = jax_get_model(_jax(cfg), jnp.float32)
         x = jnp.zeros((2, size, size, 1))
         args = (x, x) if spec.takes_context else (x,)
         shapes = jax.eval_shape(lambda: jm.init(
@@ -350,13 +358,13 @@ def vae_pair():
                             "context_encoder_variational_autoencoder")):
         cfg = _cfg(model, trainer=trainer, restore_steps=4, restore_lr=1e-2,
                    tv_lambda=0.7, use_gradient_based_restoration=0.1)
-        jt = jax_get_trainer(trainer)(cfg)
+        jt = jax_get_trainer(trainer)(_jax(cfg))
         js = jt.init_state()
         stats = _randomised_batch_stats(jax.device_get(js.batch_stats),
                                         np.random.default_rng(4))
         js = js.replace(batch_stats=jax.tree_util.tree_map(jnp.asarray,
                                                            stats))
-        tt = get_trainer(trainer)(cfg)
+        tt = get_trainer(trainer)(cfg, device="cpu")
         tt.model.load_state_dict(params_from_flax(
             jax.device_get(js.params), stats))
         out[trainer] = (cfg, jt, js, tt)
@@ -431,10 +439,10 @@ def test_lambda_sweep_matches_jax(vae_pair, monkeypatch, tmp_path):
     bs = cfg.batchsize
     _patch_noise(monkeypatch, _tiled(
         np.random.default_rng(9).normal(size=(bs, Z))))
-    ds = SYNTH(SyntheticOptions(numPatients=3, imageSize=32, numSlices=16,
-                                targetSize=32,
-                                partition={"TRAIN": 0.0, "VAL": 1.0,
-                                           "TEST": 0.0}))
+    ds, jds = (pkg.SYNTH(pkg.SyntheticOptions(
+        numPatients=3, imageSize=32, numSlices=16, targetSize=32,
+        partition={"TRAIN": 0.0, "VAL": 1.0, "TEST": 0.0}))
+        for pkg in (synthetic, jax_synthetic))
     arr = ds.slices("VAL")
     n_batches = max(1, int((len(arr) // bs) * 0.2))
     assert n_batches >= 2
@@ -461,7 +469,7 @@ def test_lambda_sweep_matches_jax(vae_pair, monkeypatch, tmp_path):
     np.testing.assert_allclose(got, ref, rtol=1e-5)
     assert np.ptp(ref) > 0
     jt.workdir, tt.workdir = None, str(tmp_path)
-    want = jt.determine_best_lambda(ds, js)
+    want = jt.determine_best_lambda(jds, js)
     best = tt.determine_best_lambda(ds)
     two = np.sort(ref)[:2]
     if two[1] - two[0] > 1e-5 * two[0]:
@@ -477,7 +485,7 @@ def test_lambda_sweep_chunks_equal_one_restoration(monkeypatch):
     the objective is per sample."""
     cfg = _cfg("variational_autoencoder", trainer="VAE_You",
                restore_steps=3, tv_lambda=0.5)
-    tt = get_trainer("VAE_You")(cfg)
+    tt = get_trainer("VAE_You")(cfg, device="cpu")
     tt.init_state()
     x = _t(_x(2 * cfg.batchsize, seed=13))
     lambdas = torch.arange(20, dtype=torch.float32) / 10.0
@@ -495,7 +503,7 @@ def test_batched_volume_restoration_equals_per_volume_calls():
     generator at its own shape, so the stack equals per-volume calls."""
     cfg = _cfg("variational_autoencoder", trainer="VAE_You",
                restore_steps=3, tv_lambda=0.5, dropout_rate=0.5)
-    tt = get_trainer("VAE_You")(cfg)
+    tt = get_trainer("VAE_You")(cfg, device="cpu")
     tt.init_state()
     rng = np.random.default_rng(10)
     counts = [5, 2, 4]
@@ -559,9 +567,9 @@ def test_train_steps_match_jax(trainer, model, monkeypatch):
                         lambda key, shape: jnp.asarray(u))
     monkeypatch.setattr(context, "context_mask_draws",
                         lambda g, b, m, device: (_t(n_boxes), _t(u)))
-    jt = jax_get_trainer(trainer)(cfg)
+    jt = jax_get_trainer(trainer)(_jax(cfg))
     js = jt.init_state()
-    tt = get_trainer(trainer)(cfg)
+    tt = get_trainer(trainer)(cfg, device="cpu")
     tt.init_state()
     jstep = jax.jit(jt._build_train_step())
     jval = jax.jit(jt._build_val_step())

@@ -2,21 +2,23 @@
 
 A second package beside the JAX one (`unsupervised_anomaly_detection_brain_
 mri_tpu`, the reference), mirroring its module paths.  It imports ``torch``
-and never ``jax``, ``flax``, ``optax`` or ``orbax``; from the JAX package it
-uses only host-side modules (config, volume I/O, preprocessing, phantoms).
+and never ``jax``, ``flax``, ``optax`` or ``orbax``, nor anything of the JAX
+package: the host-side layer (config, volume I/O, preprocessing, phantoms,
+dataset loaders, artifacts) is the port's own copy.
 Every kernel the JAX package wrote in Pallas is a hand-written kernel here
 (``csrc/``), and a CUDA tensor always reaches its kernel or raises.
 
-Ported so far: the ``AE`` preset end to end: training (``train/``),
-``evaluate()`` with threshold transfer (``eval/evaluate.py``), serving
-(``eval/inference.py``) and the CLI
+Ported so far: the presets ``AE``, ``AE_spatial``, ``VAE``,
+``VAE_Zimmerer``, ``VAE_You``, ``CE``, ``ceVAE`` and ``ceVAE_Zimmerer`` end
+to end: training (``train/``), ``evaluate()`` with MC dropout and threshold
+transfer (``eval/evaluate.py``), serving (``eval/inference.py``) and the CLI
 (``python -m unsupervised_anomaly_detection_brain_mri_tpu_torch --preset AE
 --synthetic``; ``... infer``).
 """
 
 __version__ = "0.1.0"
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import (  # noqa: F401
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (  # noqa: F401
     Config,
     Options,
     default_options,

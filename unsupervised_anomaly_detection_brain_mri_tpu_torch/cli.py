@@ -1,9 +1,9 @@
 """Command-line interface of the port: training with the evaluation
 protocol, and ``infer``.
 
-Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/cli.py`, with
-its parser, flag defaults, presets and ``build_dataset`` (imported from
-there: that module imports no JAX at module level).  Added: ``--device``
+Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/cli.py`.
+``build_dataset``, ``CLI_DEFAULTS`` and ``make_parser`` are copies of that
+module's (same flags, defaults and dataset cohorts).  Added: ``--device``
 (default ``cuda``; asking for a card that is not there raises, nothing
 falls back to the CPU).
 
@@ -31,12 +31,8 @@ import os
 import sys
 from typing import List, Optional
 
-from unsupervised_anomaly_detection_brain_mri_tpu.cli import (
-    CLI_DEFAULTS,
-    build_dataset,
-    make_parser,
-)
-from unsupervised_anomaly_detection_brain_mri_tpu.config import (
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+    DATASET_PARTITIONS,
     Config,
     Dataset,
     Optimizer,
@@ -44,9 +40,199 @@ from unsupervised_anomaly_detection_brain_mri_tpu.config import (
     PathConfig,
     preset,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu.utils.misc import (
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils.misc import (
     json_sanitize,
 )
+
+
+def build_dataset(options: Options, config: Config, dataset: Dataset,
+                  split_role: str):
+    """get_datasets parity (`utils/default_config_setup.py:60-72`):
+    'healthy' -> training cohort; 'pathological' -> lesion eval cohort."""
+    res = (config.outputHeight, config.outputWidth)
+    common = dict(
+        sliceStart=options.sliceStart, sliceEnd=options.sliceEnd,
+        sliceResolution=res, cache=options.cache,
+        normalizationMethod=options.normalizationMethod)
+    if dataset == Dataset.SYNTH:
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
+            SYNTH,
+            SyntheticOptions,
+        )
+
+        if split_role == "healthy":
+            return SYNTH(SyntheticOptions(
+                numPatients=8, imageSize=config.outputWidth,
+                numSlices=max(options.sliceEnd - options.sliceStart, 8),
+                targetSize=config.outputWidth,
+                partition={"TRAIN": 0.7, "VAL": 0.3, "TEST": 0.0}))
+        return SYNTH(SyntheticOptions(
+            numPatients=6, imageSize=config.outputWidth,
+            numSlices=max(options.sliceEnd - options.sliceStart, 8),
+            targetSize=config.outputWidth, withLesions=True, seed=99,
+            partition={"TRAIN": 0.0, "VAL": 0.5, "TEST": 0.5}))
+    if dataset == Dataset.BRAINWEB:
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.brainweb import (
+            BRAINWEB,
+            BrainwebOptions,
+        )
+
+        if split_role == "healthy":
+            return BRAINWEB(BrainwebOptions(
+                dir=options.paths.brainweb_dir,
+                partition={"TRAIN": 0.7, "VAL": 0.3, "TEST": 0.0},
+                filterType=("NORMAL",), skullRemoval=True,
+                backgroundRemoval=options.backgroundRemoval, **common))
+        return BRAINWEB(BrainwebOptions(
+            dir=options.paths.brainweb_dir,
+            partition={"TRAIN": 0.0, "VAL": 0.3, "TEST": 0.7},
+            filterType=("SEVEREMS",), skullRemoval=True, **common))
+    if dataset == Dataset.MSLUB:
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.ms_datasets import (
+            MSLUB,
+            MSOptions,
+        )
+
+        return MSLUB(MSOptions(
+            dir=options.paths.mslub_dir,
+            partition=DATASET_PARTITIONS[Dataset.MSLUB],
+            filterProtocol=("FLAIR",), **common))
+    if dataset == Dataset.MSISBI2015:
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.ms_datasets import (
+            MSISBI2015,
+            MSOptions,
+        )
+
+        return MSISBI2015(MSOptions(
+            dir=options.paths.msisbi2015_dir,
+            partition=DATASET_PARTITIONS[Dataset.MSISBI2015],
+            filterProtocol=("FLAIR",), **common))
+    if dataset == Dataset.MSSEG2008:
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.ms_datasets import (
+            MSSEG2008,
+            MSSEG2008Options,
+        )
+
+        return MSSEG2008(MSSEG2008Options(
+            dir=options.paths.msseg2008_dir,
+            partition=DATASET_PARTITIONS[Dataset.MSSEG2008],
+            filterProtocol=("FLAIR",), **common))
+    raise ValueError(f"unknown dataset {dataset}")
+
+
+# Reference `run.py:122-150` flag defaults.  The parser itself uses None
+# sentinels so "explicitly passed (even at the default value)" is
+# distinguishable from "not passed" — presets only yield to flags the user
+# actually typed.
+CLI_DEFAULTS = {
+    "batchsize": 8, "lr": 0.0001, "numEpochs": 1000, "zDim": 128,
+    "outputWidth": 128, "outputHeight": 128, "optimizer": "ADAM",
+    "intermediateResolutions": "8,8", "slices_start": 20,
+    "slices_end": 130, "trainer": "AE", "model": "autoencoder",
+    "numMonteCarloSamples": 0, "use_gradient_based_restoration": 0.0,
+    "kappa": 1.0, "scale": 10.0, "rho": 1.0, "dim_c": 9, "dim_z": 128,
+    "dim_w": 1, "c_lambda": 1.0, "restore_lr": 1e-3,
+    "restore_steps": 150, "tv_lambda": -1.0,
+}
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Framework",
+        epilog="subcommands (run as the first argument): "
+               "'validate-data' dry-runs dataset-layout discovery; "
+               "'infer' serves a calibrated workdir on new scans — "
+               "see 'run.py validate-data --help' / 'run.py infer --help'")
+    p.add_argument("-c", "--config", default=None, type=str,
+                   help="config-path (JSON path roots)")
+    p.add_argument("-b", "--batchsize", default=None, type=int)
+    p.add_argument("-l", "--lr", default=None, type=float)
+    p.add_argument("-E", "--numEpochs", default=None, type=int)
+    p.add_argument("-z", "--zDim", default=None, type=int)
+    p.add_argument("-w", "--outputWidth", default=None, type=int)
+    p.add_argument("-g", "--outputHeight", default=None, type=int)
+    p.add_argument("-o", "--optimizer", default=None, type=str)
+    p.add_argument("-i", "--intermediateResolutions", default=None,
+                   type=str, help="Spatial bottleneck resolution, e.g. 8,8")
+    p.add_argument("-s", "--slices_start", default=None, type=int)
+    p.add_argument("-e", "--slices_end", default=None, type=int)
+    p.add_argument("-t", "--trainer", default=None, type=str)
+    p.add_argument("-m", "--model", default=None, type=str)
+    p.add_argument("-O", "--threshold", default=None, type=float)
+    p.add_argument("-d", "--ds", default=None, type=str,
+                   help="Only evaluate on the given dataset")
+    # per-architecture extras
+    p.add_argument("-n", "--numMonteCarloSamples", default=None, type=int)
+    p.add_argument("-G", "--use_gradient_based_restoration", default=None,
+                   type=float)
+    p.add_argument("-K", "--kappa", default=None, type=float)
+    p.add_argument("-M", "--scale", default=None, type=float)
+    p.add_argument("-R", "--rho", default=None, type=float)
+    p.add_argument("-C", "--dim_c", default=None, type=int)
+    p.add_argument("-Z", "--dim_z", default=None, type=int)
+    p.add_argument("-W", "--dim_w", default=None, type=int)
+    p.add_argument("-A", "--c_lambda", default=None, type=float)
+    p.add_argument("-L", "--restore_lr", default=None, type=float)
+    p.add_argument("-S", "--restore_steps", default=None, type=int)
+    p.add_argument("-T", "--tv_lambda", default=None, type=float)
+    # TPU-native additions
+    p.add_argument("--synthetic", action="store_true",
+                   help="hermetic run on the procedural phantom dataset")
+    p.add_argument("--mesh-data", default=None, type=int,
+                   help="data-parallel device count (default: all)")
+    p.add_argument("--precision", default="bfloat16",
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--s2d-stem", action="store_true",
+                   help="opt-in NON-PARITY space-to-depth input stem "
+                        "(Config.spaceToDepthStem)")
+    p.add_argument("--d2s-head", action="store_true",
+                   help="opt-in NON-PARITY depth-to-space decoder head "
+                        "(Config.depthToSpaceHead)")
+    p.add_argument("--fast-convt-grad", dest="fast_convt_grad",
+                   action="store_true", default=True,
+                   help="PARITY-PRESERVING perf (default ON): reverse-"
+                        "free ConvT kernel gradient (Config.fastConvTGrad"
+                        "; same math and checkpoints, 1.08x on TPU v5e)")
+    p.add_argument("--no-fast-convt-grad", dest="fast_convt_grad",
+                   action="store_false",
+                   help="disable the reverse-free ConvT kernel gradient "
+                        "(use jax's built-in transpose rule)")
+    p.add_argument("--tpu-fast", dest="tpu_fast", action="store_true",
+                   default=None,
+                   help="validated TPU perf profile: enables the "
+                        "space-to-depth stem AND the depth-to-space head "
+                        "(equivalent to --s2d-stem --d2s-head; NON-PARITY "
+                        "architecture, quality validated against the "
+                        "18-preset scoreboard — see README).  DEFAULT when "
+                        "the backend is a TPU; --parity opts out")
+    p.add_argument("--parity", action="store_true",
+                   help="force the reference-parity architecture (opt out "
+                        "of the TPU-default fast profile).  Non-TPU "
+                        "backends are parity by default")
+    p.add_argument("--log-every-n", default=0, type=int,
+                   help="print every n-th batch's metrics from inside the "
+                        "jitted epoch (async callback; parity with the "
+                        "reference's per-batch console logs, "
+                        "trainers/AE.py:86).  0 = per-epoch means only")
+    p.add_argument("--tb-every-n", default=0, type=int,
+                   help="emit mid-epoch TensorBoard summaries (scalars + "
+                        "input|rec|L1 image grid) every n-th batch, parity "
+                        "with the reference's tfSummaryAfter "
+                        "(trainers/DLMODEL.py:24).  Implies TensorBoard "
+                        "logging; 0 = per-epoch TB only")
+    p.add_argument("--stream-pool", action="store_true",
+                   help="stream the training pool in host-prefetched "
+                        "device chunks instead of keeping it whole in HBM "
+                        "(automatic above "
+                        "Options.streamPoolThresholdMB; identical updates)")
+    p.add_argument("--preset", default=None, type=str,
+                   help="experiment preset name (mains/ parity)")
+    p.add_argument("--workdir", default=None, type=str)
+    p.add_argument("--metrics-out", default=None, type=str,
+                   help="write one JSON row per evaluation (AUROC/AUPRC/"
+                        "bestDice/threshold + final train loss) — feeds "
+                        "the run_all quality scoreboard")
+    return p
 
 
 def _scan_stem(path: str) -> str:

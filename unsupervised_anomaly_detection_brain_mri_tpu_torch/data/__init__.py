@@ -1,19 +1,22 @@
-"""Host-side data layer, shared with the JAX package.
+"""Host-side data layer: volume I/O, normalisation, the procedural phantom
+and the dataset loaders.
 
-These modules of `unsupervised_anomaly_detection_brain_mri_tpu/data/` use
-only numpy and scipy (no JAX), so the port imports them rather than copying
-them: volume I/O, normalisation and the procedural phantom.
+Copies of the modules of `unsupervised_anomaly_detection_brain_mri_tpu/
+data/` that the port reaches (numpy and scipy only), with the port's import
+paths; the native helper library is built from the port's own
+``csrc_host/uadmri_native.cpp``.  Names, behaviour and on-disk formats
+(``.npz``/``.uadc`` caches, NIfTI) are the JAX package's.
 """
 
-from unsupervised_anomaly_detection_brain_mri_tpu.data.formats import (  # noqa: F401
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.formats import (  # noqa: F401
     write_nifti,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu.data.preprocess import (  # noqa: F401
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.preprocess import (  # noqa: F401
     normalize_volume,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu.data.synthetic import (  # noqa: F401
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (  # noqa: F401
     make_phantom,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu.data.volume import (  # noqa: F401
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.volume import (  # noqa: F401
     open_volume,
 )

@@ -30,17 +30,15 @@ dropout.
 
 Artifacts are the JAX package's: ``evalPC.npy``/``.txt``/``.json``,
 ``rocPC.npy``, ``prcPC.npy`` and the histogram, curve and slice pictures of
-its host-only ``eval/artifacts.py``.  The pictures need matplotlib and
+``eval/artifacts.py`` (the port's copy of the JAX package's module).  The pictures need matplotlib and
 imageio; without them each one is replaced by a printed line naming the
 missing package, and every numeric artifact is still written.
 """
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import os
-import sys
 import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -49,8 +47,8 @@ import numpy as np
 import torch
 from scipy import ndimage as ndi
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config, Options
-from unsupervised_anomaly_detection_brain_mri_tpu.utils.misc import (
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Options
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils.misc import (
     json_sanitize,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import write_nifti
@@ -64,29 +62,16 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops.median import (
     median_filter_3d_auto,
 )
 
-_ARTIFACTS_MODULE = "unsupervised_anomaly_detection_brain_mri_tpu_torch._artifacts"
-
-
 def _artifacts() -> Tuple[Any, Optional[str]]:
-    """(module, None), or (None, name of the missing package).
-
-    The JAX package's ``eval/artifacts.py`` is host-only (numpy,
-    matplotlib, imageio), but its package ``__init__`` imports JAX, so it is
-    loaded from its file."""
-    if _ARTIFACTS_MODULE in sys.modules:
-        return sys.modules[_ARTIFACTS_MODULE], None
-    import unsupervised_anomaly_detection_brain_mri_tpu as jax_pkg
-
-    path = os.path.join(os.path.dirname(jax_pkg.__file__), "eval",
-                        "artifacts.py")
-    spec = importlib.util.spec_from_file_location(_ARTIFACTS_MODULE, path)
-    module = importlib.util.module_from_spec(spec)
+    """(module, None), or (None, name of the missing package): the plots
+    of ``eval/artifacts.py`` need matplotlib and imageio."""
     try:
-        spec.loader.exec_module(module)
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
+            artifacts,
+        )
     except ModuleNotFoundError as e:
         return None, e.name
-    sys.modules[_ARTIFACTS_MODULE] = module
-    return module, None
+    return artifacts, None
 
 
 def _plot(what: str, name: str, *args: Any, **kwargs: Any) -> None:

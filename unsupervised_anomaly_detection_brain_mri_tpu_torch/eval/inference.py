@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config, Options
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Options
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
     normalize_volume,
 )

@@ -18,7 +18,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
     ae,
     cevae,

@@ -4,8 +4,8 @@ Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/ops/
 pallas_median.py`.  Three entry points:
 
   * ``median_filter_3d_cuda`` launches ``csrc/median5.cu`` on a CUDA tensor
-    (exact selection by bisection over order-preserving uint32 keys; see
-    the note at the top of the source);
+    (exact selection by element-snapping bisection over order-preserving
+    uint32 keys; see the note at the top of the source);
   * ``median_filter_3d`` is the plain PyTorch version (the counterpart of
     the JAX package's XLA path, `ops/postprocess.py::median_filter_3d`): 125
     stacked views per chunk of slices and ``torch.median``;
@@ -15,6 +15,11 @@ pallas_median.py`.  Three entry points:
 Borders are scipy's 'reflect' (numpy 'symmetric', the edge voxel repeated).
 ``torch.nn.functional.pad(mode="reflect")`` is numpy 'reflect' (edge not
 repeated), so the plain version mirrors indices instead.
+
+``median_select_reference`` runs the kernel's selection rule, vectorised,
+on rows of 125 window values, and returns the rounds it took: the tests and
+``chip_smoke.py`` hold the rule against a sort with it.  The main path
+never calls it.
 
 ``LAUNCHES`` counts kernel launches (never plain-version calls), so a run
 can show that its main path went through the kernel.
@@ -26,7 +31,9 @@ import torch
 
 LAUNCHES = 0
 
-_MAX_SLICES = 65535 * 4  # CUDA grid z limit times slices per block
+_MAX_SLICES = 65535 * 8  # CUDA grid z limit times slices per block
+_WINDOW = 125
+_NEED = _WINDOW // 2 + 1  # the median is the 63rd smallest of 125
 
 
 def _mirror(i: int, n: int) -> int:
@@ -70,6 +77,64 @@ def median_filter_3d(vol: torch.Tensor, kernel: int = 5,
         # k^3 is odd, so torch.median's lower median is the exact median
         out[s0: s0 + cs] = torch.stack(views, dim=-1).median(dim=-1).values
     return out
+
+
+def _to_key(values: torch.Tensor) -> torch.Tensor:
+    """float32 -> its order-preserving uint32 key, held in int64 (torch has
+    no full uint32 arithmetic): negative floats flip every bit, the others
+    only the sign bit, as ``to_key`` in ``csrc/median5.cu``."""
+    bits = values.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    negative = bits >= 0x80000000
+    return torch.where(negative, bits ^ 0xFFFFFFFF, bits ^ 0x80000000)
+
+
+def _from_key(keys: torch.Tensor) -> torch.Tensor:
+    bits = torch.where(keys >= 0x80000000, keys ^ 0x80000000,
+                       keys ^ 0xFFFFFFFF)
+    # the low 32 bits as a signed int32, then reinterpreted as float32
+    signed = bits - ((bits >> 31) << 32)
+    return signed.to(torch.int32).view(torch.float32)
+
+
+def median_select_reference(windows: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's selection rule on an (N, 125) float32 tensor of window
+    values, vectorised over N: (median (N,) float32, rounds (N,) int64).
+
+    Keys start bracketed by the window's [min, max]; each round takes
+    ``mid = lo + (hi - lo) // 2`` and, in one pass, ``c = #(key <= mid)``,
+    ``below = max{key <= mid}`` and ``above = min{key > mid}``.  With
+    ``c >= 63`` the median is at most ``below`` (``hi = below``; exactly
+    ``below`` when ``c == 63``), else at least ``above`` (``lo = above``;
+    exactly ``above`` when ``c == 62``).  Both ends snap to keys of the
+    window, so each round at least halves the distinct keys left in range
+    as well as the key range: at most 32 rounds, 0 for a constant window.
+    """
+    if windows.ndim != 2 or windows.shape[1] != _WINDOW:
+        raise ValueError(f"expected (N, {_WINDOW}) windows, got "
+                         f"{tuple(windows.shape)}")
+    keys = _to_key(windows.to(torch.float32))
+    lo = keys.min(dim=1).values
+    hi = keys.max(dim=1).values
+    rounds = torch.zeros_like(lo)
+    beyond = torch.tensor(1 << 32, dtype=torch.int64, device=keys.device)
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            break
+        mid = lo + (hi - lo) // 2
+        le = keys <= mid[:, None]
+        c = le.sum(dim=1)
+        below = torch.where(le, keys, -1).max(dim=1).values
+        above = torch.where(le, beyond, keys).min(dim=1).values
+        new_hi = torch.where(c >= _NEED, below, hi)
+        new_lo = torch.where(c >= _NEED, lo, above)
+        new_lo = torch.where(c == _NEED, below, new_lo)
+        new_hi = torch.where(c == _NEED - 1, above, new_hi)
+        lo = torch.where(active, new_lo, lo)
+        hi = torch.where(active, new_hi, hi)
+        rounds += active.to(torch.int64)
+    return _from_key(hi), rounds
 
 
 def median_filter_3d_cuda(vol: torch.Tensor) -> torch.Tensor:

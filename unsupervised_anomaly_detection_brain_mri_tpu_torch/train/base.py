@@ -59,7 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config, Options
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Options
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
     Sample,
     VolumeGenerators,
@@ -117,7 +117,7 @@ class BaseTrainer:
 
     def __init__(self, config: Config, options: Optional[Options] = None,
                  workdir: Optional[str] = None,
-                 device: torch.device | str = "cpu") -> None:
+                 device: torch.device | str = "cuda") -> None:
         self.config = config
         self.options = options or Options()
         self.workdir = workdir

@@ -19,7 +19,7 @@ from typing import Iterable, Optional
 
 import torch
 
-from unsupervised_anomaly_detection_brain_mri_tpu.config import Config, Optimizer
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Optimizer
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
