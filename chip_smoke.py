@@ -99,12 +99,23 @@ UPDATE_TOL = 0.25
 FREE_RUN_TOL = 1e-3
 TIMED_STEPS = 100
 KERNEL_BATCH = 10  # back-to-back kernel calls per pair of CUDA events
-STEP_PRESETS = ("VAE_Zimmerer", "ceVAE_Zimmerer", "AE_spatial", "CE")
+STEP_PRESETS = ("VAE_Zimmerer", "ceVAE_Zimmerer", "AE_spatial", "CE",
+                "GMVAE", "constrainedAE", "constrainedAAE")
+AAE_TIMED_STEPS = 10  # an AAE step at ae_iters 20 is 41 substeps
 WARM_STEPS = 3
 # card-vs-CPU drift of the 150-step restoration, in restore_lr steps: a
 # sign flip of the L1 or TV subgradient moves a voxel by whole multiples
 # of restore_lr (5 measured on an H100, phase 8d)
 RESTORE_FLIP_STEPS = 10
+# the 150-step CPU restoration of phase 8d runs on the middle slices of
+# its volume (each slice restores on its own): all 110 took 290-460 s
+RESTORE_CHECK_SLICES = 40
+# the AAE critic's and generator's losses read the train-mode encoder's
+# z_, which one float32 rounding of the state moves ~100x further; they
+# are held to SPREAD_FACTOR x the spread of ROUNDING_RUNS CPU batches from
+# the start state perturbed by one rounding
+SPREAD_FACTOR = 30
+ROUNDING_RUNS = 3
 FLIP_STEPS = 3
 DEVICE = "cuda"
 PROFILE_OUT = os.path.join(ROOT, "build", "chip_smoke_profile.txt")
@@ -618,9 +629,15 @@ def bn_fed_bias(name):
                                        or "intermediate_conv_reverse" in name)
 
 
-def compare_training(card, cpu, start, config, t):
+def compare_training(card, cpu, start, config, t, bound_of=None):
     """Parameters and BatchNorm statistics after Adam step ``t`` taken on
-    the card and on the CPU from the same state ``start``.
+    the card and on the CPU from the same state ``start``.  ``bound_of``
+    (name -> bound) replaces the Adam bound where an element takes several
+    steps of several optimizers (the adversarial trainers' batch); the
+    count of elements beyond 1e-5 is then not limited, since over many
+    steps the devices' rounding differences carry past 1e-5 (in an AAE
+    batch on an H100, in up to 4 of the 32 elements of a BatchNorm's
+    running mean and 5 % of a critic weight's).
 
     Bounds, per tensor: no element may differ by more than both devices'
     largest possible Adam moves, 2 * lr * adam_step_bound(t) (+1e-6 for
@@ -651,14 +668,16 @@ def compare_training(card, cpu, start, config, t):
                 faults.append(f"{k} differs")
             continue
         d = (c - v).abs()
-        if float(d.max()) > bound:
+        kb = bound if bound_of is None else bound_of(k)
+        if float(d.max()) > kb:
             faults.append(f"{k}: max|diff| {float(d.max())} beyond the Adam "
-                          f"bound {bound}")
+                          f"bound {kb}")
         if bn_fed_bias(k):
             worst_fed = max(worst_fed, float(d.max()))
             continue
         n = int((d > 1e-5).sum())
-        if n > max(KINK_FLOOR, KINK_FRACTION * d.numel()):
+        if bound_of is None and n > max(KINK_FLOOR,
+                                        KINK_FRACTION * d.numel()):
             faults.append(f"{k}: {n} of {d.numel()} elements differ by more "
                           f"than 1e-5")
         upd_cpu = v - start[k]
@@ -862,11 +881,11 @@ def defer_profile(key, fn, title):
     PROFILES.append((key, fn, title))
 
 
-def warm_train(trainer, pool, seed, label):
-    """Warm slices/s of ``trainer`` over one run of TIMED_STEPS steps (the
-    epoch's index matrix repeated, so the run's one index upload and one
-    host sync are spread thin), by CUDA events, median of 3 runs; a profile
-    of one more run is queued under ``label + " train"``."""
+def warm_train(trainer, pool, seed, label, timed_steps=TIMED_STEPS):
+    """Warm slices/s of ``trainer`` over one run of ``timed_steps`` steps
+    (the epoch's index matrix repeated, so the run's one index upload and
+    one host sync are spread thin), by CUDA events, median of 3 runs; a
+    profile of one more run is queued under ``label + " train"``."""
     import numpy as np
     import torch
 
@@ -877,9 +896,9 @@ def warm_train(trainer, pool, seed, label):
     bs = trainer.config.batchsize
     n = int(pool["x"].shape[0])
     idxs = epoch_indices(np.random.default_rng((seed + 1, 0)), n, bs)
-    reps = -(-TIMED_STEPS // idxs.shape[0])
-    steps = np.tile(idxs, (reps, 1))[:TIMED_STEPS]
-    trainer._run_epoch("TRAIN", pool, idxs[:10])  # warm-up
+    reps = -(-timed_steps // idxs.shape[0])
+    steps = np.tile(idxs, (reps, 1))[:timed_steps]
+    trainer._run_epoch("TRAIN", pool, idxs[:min(10, timed_steps)])  # warm-up
     torch.cuda.synchronize()
     run_ms, enqueue_ms = [], []
     for _ in range(3):
@@ -1328,8 +1347,8 @@ def phase_vae_card_vs_cpu():
     """d. Float32, TF32 off, the same seeded weights on the card and the
     CPU, and the same noise drawn on the CPU: the VAE and ceVAE forwards of
     8 slices within TOL; ``restoration_flips`` on a 110-slice volume; one
-    150-step ``VAE_You`` restoration of it within RESTORE_FLIP_STEPS x
-    restore_lr."""
+    150-step ``VAE_You`` restoration of its middle RESTORE_CHECK_SLICES
+    slices within RESTORE_FLIP_STEPS x restore_lr."""
     import numpy as np
     import torch
 
@@ -1369,6 +1388,9 @@ def phase_vae_card_vs_cpu():
         t.init_state()
     restoration_flips(trainers[DEVICE], trainers["cpu"], xv, noise,
                       config.tv_lambda)
+    lo = max(0, (xv.shape[0] - RESTORE_CHECK_SLICES) // 2)
+    xv = xv[lo:lo + RESTORE_CHECK_SLICES]
+    noise = noise[lo:lo + RESTORE_CHECK_SLICES]
     out, secs = {}, {}
     for dev, t in trainers.items():
         t0 = time.perf_counter()
@@ -1428,8 +1450,339 @@ def phase_vae_timings(cudnn_tf32, matmul_tf32, vae_you_wd):
     return sps, total, split, sweep_s
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the GMVAE family and the latent-critic AAE family at full width
+# (128x128, the presets' batch, zDim, dims and intermediate resolution,
+# bf16)
+
+
+def phase_gmvae_spatial(base, scan):
+    """a. ``--preset GMVAE_spatial``: training, the lambda sweep on the
+    card (timed), 3 evaluations and the threshold fit with batched 150-step
+    restoration, then ``infer``."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
+        evaluate as E,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
+        base as B,
+    )
+
+    sweep, groups = {}, []
+    real_sweep = B.GMVAE.determine_best_lambda
+    real_group = E._reconstruct_volume_group
+
+    def timed_sweep(self, dataset):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sweep["lambda"] = real_sweep(self, dataset)
+        torch.cuda.synchronize()
+        sweep["s"] = time.perf_counter() - t0
+        return sweep["lambda"]
+
+    def counted_group(trainer, xs, *args, **kwargs):
+        groups.append(len(xs))
+        return real_group(trainer, xs, *args, **kwargs)
+
+    B.GMVAE.determine_best_lambda = timed_sweep
+    E._reconstruct_volume_group = counted_group
+    try:
+        wd, launches, _ = run_protocol(base, "GMVAE_spatial")
+    finally:
+        B.GMVAE.determine_best_lambda = real_sweep
+        E._reconstruct_volume_group = real_group
+    with open(os.path.join(wd, "tv_lambda.json")) as f:
+        lam = json.load(f)["tv_lambda_value"]
+    check("lambda" in sweep and lam == sweep["lambda"]
+          and 0.0 <= lam <= 1.9, f"tv_lambda.json {lam}, sweep {sweep}")
+    _, _, _, cohort = lesion_cohort("GMVAE_spatial")
+    n_test = len(cohort.patients_of("TEST"))
+    n_val = len(cohort.patients_of("VAL"))
+    check(sum(groups) == 3 * n_test + n_val and max(groups) > 1,
+          f"restoration groups {groups}")
+    served = serve_once(wd, scan, os.path.join(base, "served_GMVAE_spatial"))
+    print(f"[GMVAE_spatial] lambda sweep on the card: lambda {lam} in "
+          f"{sweep['s']:.2f} s (cold, host clock); restoration groups "
+          f"{groups} volumes; infer: {served} median launch")
+    return wd, launches + served, sweep["s"], lam
+
+
+def phase_gmvae_you_and_aae(base, scan):
+    """b. ``--preset GMVAE_You`` and ``--preset AAE`` through the protocol,
+    each then served by ``infer``: AAE epoch 0 runs 20 AE and 20 critic
+    updates and 1 generator update per batch, its ``disc_loss`` and
+    ``gen_loss`` are finite, and its checkpoint holds the three optimizer
+    states."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import gan
+
+    _, launches, _ = run_protocol(base, "GMVAE_You")
+    launches += serve_once(os.path.join(base, "GMVAE_You"), scan,
+                           os.path.join(base, "served_GMVAE_You"))
+    counts = {"ae": 0, "disc": 0, "gen": 0, "batches": 0}
+    real_update, real_step = gan.AAE.update, gan.AAE.train_step
+
+    def counted_update(self, group, loss):
+        counts[group] += 1
+        return real_update(self, group, loss)
+
+    def counted_step(self, batch):
+        counts["batches"] += 1
+        return real_step(self, batch)
+
+    gan.AAE.update, gan.AAE.train_step = counted_update, counted_step
+    try:
+        wd, aae_launches, _ = run_protocol(base, "AAE")
+    finally:
+        gan.AAE.update, gan.AAE.train_step = real_update, real_step
+    n = counts["batches"]
+    check(n > 0 and counts == {"ae": 20 * n, "disc": 20 * n, "gen": n,
+                               "batches": n},
+          f"AAE epoch 0 schedule: {counts}")
+    with open(os.path.join(wd, "curves.json")) as f:
+        train = [h for h in json.load(f) if h["phase"] == "TRAIN"]
+    check(len(train) == 1 and np.isfinite(
+        [train[0]["disc_loss"], train[0]["gen_loss"]]).all(),
+        f"AAE losses {train}")
+    ckpt = torch.load(os.path.join(wd, "torch", "ckpt", "epoch_000001.pt"),
+                      map_location="cpu", weights_only=True)
+    check(sorted(ckpt["optimizer"]) == ["ae", "disc", "gen"]
+          and "gp_generator" in ckpt, f"AAE checkpoint {sorted(ckpt)}")
+    served = serve_once(wd, scan, os.path.join(base, "served_AAE"))
+    print(f"[AAE] epoch 0: {n} batches x (20 AE + 20 critic + 1 generator) "
+          f"updates; disc_loss {train[0]['disc_loss']:.4f}, gen_loss "
+          f"{train[0]['gen_loss']:.4f}; checkpoint holds optimizers "
+          f"{sorted(ckpt['optimizer'])}; infer: {served} median launch")
+    return launches + aae_launches + served
+
+
+def draw_shapes(trainer, x):
+    """The GMVAE draws' shapes, from one forward on the CPU."""
+    import torch
+
+    with torch.no_grad():
+        out = trainer._call((x,), False, torch.Generator().manual_seed(SEED))
+    return {"w": out["w_mu"].shape, "z": out["z_mu"].shape,
+            "z_wc": out["z_wc_mus"].shape}
+
+
+def phase_families_card_vs_cpu():
+    """d. Float32, TF32 off, the same seeded weights on the card and the
+    CPU and the same noise drawn on the CPU: the six networks' forwards of
+    8 slices within TOL; one ``AAE`` batch at batch 8 (ae_iters 1, 20
+    critic iterations, the same prior latents and eps, from the CPU's state
+    after 2 batches) with each loss within TOL relative or SPREAD_FACTOR x
+    float32 rounding's spread of that loss, whichever is larger, and each
+    group's update within ``compare_training``'s bounds; a ``GMVAE`` 3-step
+    restoration of a 110-slice volume within RESTORE_FLIP_STEPS x
+    restore_lr."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import aae
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
+        epoch_indices,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, healthy, cohort = lesion_cohort("AAE")
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.from_numpy(np.asarray(healthy.slices("VAL")[:8], np.float32))
+    worst = 0.0
+    for name in ("GMVAE", "GMVAE_spatial", "GMVAE_You", "constrainedAE",
+                 "AAE", "constrainedAAE"):
+        config = preset(name, compute_dtype="float32")
+        pair = {dev: get_trainer(config.trainer)(config, device=dev)
+                for dev in (DEVICE, "cpu")}
+        for t in pair.values():
+            t.init_state()
+        cpu = pair["cpu"]
+        if name.startswith("GMVAE"):
+            noise = {k: torch.randn(s, generator=g)
+                     for k, s in draw_shapes(cpu, x).items()}
+            args, kwargs = (), {"sample": noise}
+        elif cpu.spec.takes_prior_z:
+            args = (torch.randn((8, config.zDim), generator=g),)
+            kwargs = {"gp": torch.rand((8, 1), generator=g)}
+        else:
+            args, kwargs = (), {}
+        out = {}
+        for dev, t in pair.items():
+            t.model.eval()
+            with torch.no_grad():
+                out[dev] = t.model(
+                    x.to(dev), *[a.to(dev) for a in args],
+                    **{k: ({n: v.to(dev) for n, v in a.items()}
+                           if isinstance(a, dict) else a.to(dev))
+                       for k, a in kwargs.items()})
+        # relative to each output's largest magnitude where it exceeds 1
+        # (the dense GMVAE's pc_logit sums 128 log-likelihoods)
+        errs = {k: float((out[DEVICE][k].cpu() - v).abs().max())
+                / max(1.0, float(v.abs().max()))
+                for k, v in out["cpu"].items()}
+        worst = max(worst, max(errs.values()))
+        print(f"[families-card-vs-cpu] {name} forward, 8 slices, float32: "
+              f"max|d| / max(1, max|output|) "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        check(max(errs.values()) <= TOL, f"{name} forward differs: {errs}")
+
+    # one AAE batch from one state: the same prior latents and eps on both
+    config = preset("AAE", batchsize=8, dropout_rate=0.0, learningrate=5e-5,
+                    compute_dtype="float32")
+    pool = np.asarray(healthy.slices("TRAIN"), np.float32)
+    idxs = epoch_indices(np.random.default_rng((config.seed + 1, 0)),
+                         len(pool), config.batchsize)[:3]
+    zs = [torch.randn((8, config.zDim), generator=g) for _ in range(20)]
+    epss = [torch.rand((8, 1), generator=g) for _ in range(20)]
+    real_uniform = aae.uniform
+
+    def run(trainer, rows):
+        draws = {"z": iter(zs), "eps": iter(epss)}
+        trainer.sample_z = lambda generator, n: next(draws["z"]).to(
+            trainer.device)
+        aae.uniform = lambda source, shape, device: next(draws["eps"]).to(
+            device)
+        try:
+            batch = {"x": torch.from_numpy(pool[rows]).to(trainer.device)}
+            return {k: float(v) for k, v in trainer.train_step(batch).items()}
+        finally:
+            aae.uniform = real_uniform
+
+    card, cpu = (get_trainer("AAE")(config, device=dev)
+                 for dev in (DEVICE, "cpu"))
+    for t in (card, cpu):
+        t.init_state()
+        t.epoch = 6  # ae_iters 1
+    for rows in idxs[:2]:  # Adam's first steps move every element by lr
+        run(cpu, rows)
+    start = {k: v.detach().clone() for k, v in cpu.model.state_dict().items()}
+    opt_start = copy.deepcopy(cpu.optimizer.state_dict())
+    card.model.load_state_dict(start)
+    card.optimizer.load_state_dict(copy.deepcopy(opt_start))
+    m_card, m_cpu = run(card, idxs[2]), run(cpu, idxs[2])
+    # float32 rounding's own spread: CPU batches from the start state with
+    # each element moved by one rounding (2^-23 relative, normal)
+    spread = dict.fromkeys(m_cpu, 0.0)
+    pg = torch.Generator().manual_seed(SEED + 1)
+    for _ in range(ROUNDING_RUNS):
+        t = get_trainer("AAE")(config, device="cpu")
+        t.init_state()
+        t.epoch = 6
+        t.model.load_state_dict({
+            k: v * (1 + 2 ** -23 * torch.randn(v.shape, generator=pg))
+            if v.is_floating_point() else v for k, v in start.items()})
+        t.optimizer.load_state_dict(copy.deepcopy(opt_start))
+        m = run(t, idxs[2])
+        spread = {k: max(s, abs(m[k] - m_cpu[k])) for k, s in spread.items()}
+    rel = {k: abs(m_card[k] - v) / abs(v) for k, v in m_cpu.items()}
+    over = {k: abs(m_card[k] - v) / max(TOL * abs(v), SPREAD_FACTOR * spread[k])
+            for k, v in m_cpu.items()}
+    print(f"[families-card-vs-cpu] AAE batch (1 AE, 20 critic, 1 generator "
+          f"update) from the CPU's state after 2 batches, batch 8, float32: "
+          f"losses card {m_card}, cpu {m_cpu}; relative diff "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f"; CPU spread under one rounding of the state ({ROUNDING_RUNS} "
+          f"runs) " + ", ".join(f"{k} {v / abs(m_cpu[k]):.2e}"
+                                for k, v in spread.items())
+          + f"; diff / max(TOL, {SPREAD_FACTOR} x spread) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in over.items()))
+    check(max(over.values()) <= 1.0, f"AAE losses differ: {rel}")
+    def bound_of(k):
+        """Both devices' largest moves over the Adam steps this batch takes
+        (the third of each optimizer, and the critic's 41st to 60th)."""
+        steps = [3] + ([3] if k in card.groups["gen"] else []) + (
+            list(range(41, 61)) if k in card.groups["disc"] else [])
+        return 2 * config.learningrate * sum(
+            adam_step_bound(t, 0.5, 0.9) for t in steps) + 1e-6
+
+    bound, worst_fed, p_worst, beyond, frac, upd = compare_training(
+        card.model.state_dict(), cpu.model.state_dict(), start, config, 1,
+        bound_of)
+    print(f"[families-card-vs-cpu] AAE batch: parameters max|diff| "
+          f"{p_worst:.3e}, {beyond} elements beyond 1e-5 (largest share in "
+          f"one tensor {frac:.3e}), largest relative update error {upd:.3e} "
+          f"(bound {UPDATE_TOL}); BN-fed conv biases max|diff| "
+          f"{worst_fed:.3e}")
+
+    # a GMVAE 3-step restoration of a 110-slice volume
+    config = preset("GMVAE", compute_dtype="float32", tv_lambda=0.5)
+    vol = cohort.load_volume_and_groundtruth(cohort.patients_of("TEST")[0])[0]
+    xv = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        vol, (2, 0, 1))[..., None], np.float32))
+    trainers = {dev: get_trainer("GMVAE")(config, device=dev)
+                for dev in (DEVICE, "cpu")}
+    for t in trainers.values():
+        t.init_state()
+    noise = {k: torch.randn(s, generator=g)
+             for k, s in draw_shapes(trainers["cpu"], xv).items()}
+    out = {dev: t.reconstruct_device(xv.to(dev), generator={
+        k: v.to(dev) for k, v in noise.items()})["reconstruction"].cpu()
+        for dev, t in trainers.items()}
+    d = (out[DEVICE] - out["cpu"]).abs()
+    moved = float((out["cpu"] - xv).abs().max())
+    steps = float(d.max()) / config.restore_lr
+    print(f"[families-card-vs-cpu] GMVAE restoration of {tuple(xv.shape)}, "
+          f"{config.restore_steps} steps, float32, same noise: max|d| "
+          f"{float(d.max()):.3e} = {steps:.3f} x restore_lr, voxels beyond "
+          f"1e-4 {int((d > 1e-4).sum())} of {d.numel()} (bound "
+          f"{RESTORE_FLIP_STEPS} x restore_lr); the restoration moved the "
+          f"input by up to {moved:.3e}")
+    check(moved > 0 and steps <= RESTORE_FLIP_STEPS,
+          f"GMVAE restoration differs by {float(d.max())}")
+    return worst, max(rel.values()), float(d.max())
+
+
+def phase_families_timings(cudnn_tf32, matmul_tf32, spatial_wd):
+    """e. Warm train slices/s of ``GMVAE_spatial`` and ``GMVAE_You`` at
+    batch 8 and of ``AAE`` at batch 128 with ae_iters 20 (epoch 0) and 1
+    (epoch 6); the warm ``GMVAE_spatial`` ``evaluate()`` split; profiles
+    queued."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import Config
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    _, options, healthy, cohort = lesion_cohort("GMVAE_spatial")
+    pool = device_pool(healthy)
+    sps = {}
+    for name in ("GMVAE_spatial", "GMVAE_You"):
+        c = preset(name)
+        t = get_trainer(c.trainer)(c, device=DEVICE)
+        t.init_state()
+        sps[name] = warm_train(t, pool, c.seed, name)
+    c = preset("AAE")
+    for epoch, label in ((0, "AAE ae_iters 20"), (6, "AAE ae_iters 1")):
+        t = get_trainer("AAE")(c, device=DEVICE)
+        t.init_state()
+        t.epoch = epoch
+        sps[label] = warm_train(t, pool, c.seed, label, AAE_TIMED_STEPS)
+    with open(os.path.join(spatial_wd, "config.json")) as f:
+        spatial_config = Config.from_json(f.read())
+    options = timing_options(options)
+    t = get_trainer("GMVAE_spatial")(spatial_config, options,
+                                     workdir=spatial_wd, device=DEVICE)
+    check(t.load_checkpoint() is not None, "GMVAE_spatial checkpoint")
+    total, split = warm_evaluate(cohort, t, options, spatial_config,
+                                 "GMVAE_spatial")
+    return sps, total, split
+
+
 def phase_profiles():
-    """9. The queued profiles, after every timing: printed, kept in
+    """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
     busy, texts = {}, []
     for key, fn, title in PROFILES:
@@ -1490,7 +1843,18 @@ def main():
                                   phase_vae_card_vs_cpu)
         vae_sps, you_eval_ms, you_split, sweep_s = timed_phase(
             "8e VAE timings", phase_vae_timings, *tf32, you_wd)
-        busy = timed_phase("9 profiles", phase_profiles)
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        spatial_wd, spatial_launches, gm_sweep_s, gm_lam = timed_phase(
+            "9a GMVAE_spatial", phase_gmvae_spatial, tmp, scans[0])
+        launches += spatial_launches
+        launches += timed_phase("9b GMVAE_You + AAE", phase_gmvae_you_and_aae,
+                                tmp, scans[0])
+        fam_fwd, aae_rel, gm_restore = timed_phase(
+            "9d families card vs cpu", phase_families_card_vs_cpu)
+        fam_sps, gm_eval_ms, gm_split = timed_phase(
+            "9e families timings", phase_families_timings, *tf32, spatial_wd)
+        busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(os.path.join(base, "timing"), ignore_errors=True)
@@ -1512,6 +1876,18 @@ def main():
           + ", ".join(f"{p} {v:.1f} ms" for p, v in you_split.items())
           + f"; device busy {100 * busy['VAE_You evaluate']:.1f} %); "
           f"150-step restoration card vs CPU max|d| {restore_err:.3e}")
+    print(f"[summary] GMVAE and AAE families: warm train "
+          + ", ".join(f"{k} {v:.1f} slices/s (device busy "
+                      f"{100 * busy[k + ' train']:.1f} %)"
+                      for k, v in fam_sps.items())
+          + f"; GMVAE_spatial lambda {gm_lam}, sweep {gm_sweep_s:.2f} s cold;"
+          f" warm GMVAE_spatial evaluate() {gm_eval_ms:.1f} ms for the TEST "
+          f"cohort (" + ", ".join(f"{p} {v:.1f} ms"
+                                  for p, v in gm_split.items())
+          + f"; device busy {100 * busy['GMVAE_spatial evaluate']:.1f} %); "
+          f"card vs CPU: forwards max|d| {fam_fwd:.3e}, AAE batch losses "
+          f"max relative diff {aae_rel:.3e}, GMVAE 3-step restoration max|d| "
+          f"{gm_restore:.3e}")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

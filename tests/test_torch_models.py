@@ -187,7 +187,7 @@ def test_unported_models_raise(name):
 
 def test_unported_trainers_raise():
     assert trainer_registry.get_trainer("AE").__name__ == "AE"
-    for name in ("GMVAE", "AAE"):
+    for name in ("fAnoGAN", "AnoVAEGAN"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             trainer_registry.get_trainer(name)
 

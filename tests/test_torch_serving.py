@@ -277,8 +277,7 @@ def test_cli_training_subcommands_are_not_yet_ported(capsys):
     assert cli.main(["validate-data"]) == 2
     assert "not yet ported" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--synthetic", "-t", "GMVAE", "-m",
-                  "gaussian_mixture_variational_autoencoder", "-w", "32",
+        cli.main(["--synthetic", "-t", "fAnoGAN", "-m", "fanogan", "-w", "32",
                   "-g", "32",
                   "-s", "0", "-e", "8", "--device", "cpu"])
 

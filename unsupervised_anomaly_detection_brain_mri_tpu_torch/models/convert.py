@@ -12,14 +12,19 @@ module of the same name in this package.  Mappings:
     transposed convolution is the adjoint of a correlation);
   * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
     (the Flax ``BatchNorm_0`` level is dropped), with
-    ``num_batches_tracked`` set to 0.
+    ``num_batches_tracked`` set to 0;
+  * a bare parameter of a module (``self.param``, such as the GMVAEs'
+    ``z_wc_log_sigma_inv_bias``) -> the torch parameter of the same path.
 
 Transposed-convolution modules are recognised by ``convT`` in their name,
-as every one in the JAX zoo is named.
+as every one in the JAX zoo is named (the stride-1 ones of ``GMVAEYou``
+too).
 
 ``adam_state_from_optax`` carries an ``optax.adam`` state across the same
 way (moments with the parameters' layout transforms), so a JAX run taken
-after k steps continues in the port.
+after k steps continues in the port.  It finds the Adam state inside
+``optax.masked`` chains too (the adversarial trainers' per-group
+optimizers), and fills the torch optimizer over the group's parameters.
 """
 
 from __future__ import annotations
@@ -31,12 +36,22 @@ import numpy as np
 import torch
 
 
+# bare Flax parameters (not kernel, scale or bias of a layer)
+BARE_PARAMETERS = ("z_wc_log_sigma_inv_bias",)
+
+
+def _masked(leaf: Any) -> bool:
+    """An ``optax.MaskedNode``: the place of a parameter outside a masked
+    optimizer's group (an empty named tuple)."""
+    return type(leaf).__name__ == "MaskedNode"
+
+
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
              ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (str(k),))
-        else:
+        elif not _masked(v):
             yield prefix + (str(k),), v
 
 
@@ -75,6 +90,9 @@ def params_from_flax(params: Mapping, batch_stats: Mapping
             key = "weight"
         elif name == "bias":
             key = "bias"
+        elif name in BARE_PARAMETERS and not is_bn:
+            sd[".".join(path)] = _tensor(a)
+            continue
         else:
             raise ValueError(f"unmapped Flax parameter {'/'.join(path)}")
         sd[f"{prefix}.{key}"] = _tensor(a)
@@ -91,7 +109,8 @@ def params_from_flax(params: Mapping, batch_stats: Mapping
 
 def _find_adam_state(opt_state: Any) -> Any:
     """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
-    state, which ``optax.adam`` nests in a chain tuple."""
+    state, which ``optax.adam`` nests in a chain tuple (and
+    ``optax.masked`` in a ``MaskedState``, itself a named tuple)."""
     if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
         return opt_state
     if isinstance(opt_state, (tuple, list)):
@@ -106,7 +125,8 @@ def adam_state_from_optax(opt_state: Any, model: torch.nn.Module,
                           optimizer: torch.optim.Optimizer
                           ) -> Dict[str, Any]:
     """Convert an ``optax.adam`` state into a ``state_dict`` for
-    ``optimizer`` (a ``torch.optim.Adam`` over ``model.parameters()``).
+    ``optimizer`` (a ``torch.optim.Adam`` over parameters of ``model``:
+    all of them, or, for a masked optax state, the group it covers).
 
     ``mu``/``nu`` are parameter trees: they take the parameters' layout
     transforms (HWIO -> OIHW, Dense transposed, ConvTranspose flipped) and
@@ -117,10 +137,12 @@ def adam_state_from_optax(opt_state: Any, model: torch.nn.Module,
         raise ValueError("no optax Adam state (count, mu, nu) found")
     mu = params_from_flax(adam.mu, {})
     nu = params_from_flax(adam.nu, {})
-    names = [n for n, _ in model.named_parameters()]
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    names = [by_id[id(p)] for group in optimizer.param_groups
+             for p in group["params"]]
     if set(names) != set(mu):
-        raise ValueError(f"optax moments cover {sorted(mu)}, the model has "
-                         f"{sorted(names)}")
+        raise ValueError(f"optax moments cover {sorted(mu)}, the optimizer "
+                         f"has {sorted(names)}")
     step = float(np.asarray(adam.count))
     sd = optimizer.state_dict()
     sd["state"] = {i: {"step": torch.tensor(step, dtype=torch.float32),

@@ -19,12 +19,18 @@ Numerics that must match Flax:
   * parameters are float32, compute runs in the config's compute dtype,
     and the decoder's output is cast to float32.
 
-Random draws (dropout masks, the VAEs' ``eps ~ N(0, 1)``) come from an
-explicit source: a ``torch.Generator``, a ``VolumeGenerators`` (one
-generator per volume of a padded stack), or, for ``eps`` only, the noise
-itself as a tensor.  Given noise is the seam through which tests and the
-card-vs-CPU checks feed both sides the same numbers; the training and
-evaluation paths always pass generators.
+Also here: the stride-1 3x3 SAME transposed convolution and the nearest
+x2 upsample of ``GMVAEYou``, and the latent critic ``MLPDiscriminator`` of
+the adversarial autoencoders (LeakyReLU 0.2, not the backbone's 0.3).
+
+Random draws (dropout masks, the VAEs' ``eps ~ N(0, 1)``, the GMVAEs' three
+normals, the critic interpolate's ``eps ~ U[0, 1)``) come from an explicit
+source: a ``torch.Generator``, a ``VolumeGenerators`` (one generator per
+volume of a padded stack), or, for the noise only, the noise itself: a
+tensor, or for a model that makes several named draws (the GMVAEs' ``w``,
+``z`` and ``z_wc``) a dict of tensors by draw name.  Given noise is the
+seam through which tests and the card-vs-CPU checks feed both sides the
+same numbers; the training and evaluation paths always pass generators.
 
 The space-to-depth stem, the depth-to-space head and spatial LayerNorm are
 not ported yet (``models/registry.py`` rejects configs that ask for them).
@@ -33,7 +39,7 @@ not ported yet (``models/registry.py`` rejects configs that ask for them).
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -93,8 +99,9 @@ class VolumeGenerators:
 
 
 RandomSource = Union[torch.Generator, VolumeGenerators]
-# eps may also be given as a tensor (the noise seam)
-Sample = Union[torch.Generator, VolumeGenerators, torch.Tensor]
+# the noise may also be given: a tensor, or tensors by draw name (the seam)
+Sample = Union[torch.Generator, VolumeGenerators, torch.Tensor,
+               Mapping[str, torch.Tensor]]
 
 
 def draw(fn: Callable, source: RandomSource, shape: Sequence[int],
@@ -108,19 +115,45 @@ def draw(fn: Callable, source: RandomSource, shape: Sequence[int],
                     "never dropout)")
 
 
+def _given(noise: Union[torch.Tensor, Mapping[str, torch.Tensor]],
+           shape: Sequence[int], device: torch.device,
+           name: Optional[str]) -> torch.Tensor:
+    """Given noise for the draw ``name`` of ``shape``: the tensor itself,
+    or the dict's entry ``name``."""
+    if isinstance(noise, Mapping):
+        if name not in noise:
+            raise ValueError(f"given noise has draws {sorted(noise)}, the "
+                             f"model draws {name!r}")
+        noise = noise[name]
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"given noise has shape {tuple(noise.shape)}, "
+                         f"the draw needs {tuple(shape)}")
+    return noise.to(device=device, dtype=torch.float32)
+
+
 def standard_normal(sample: Optional[Sample], shape: Sequence[int],
-                    device: torch.device) -> torch.Tensor:
-    """float32 N(0, 1) of ``shape``: drawn from ``sample``, or ``sample``
-    itself when it is a tensor (given noise)."""
-    if isinstance(sample, torch.Tensor):
-        if tuple(sample.shape) != tuple(shape):
-            raise ValueError(f"given noise has shape {tuple(sample.shape)}, "
-                             f"the draw needs {tuple(shape)}")
-        return sample.to(device=device, dtype=torch.float32)
+                    device: torch.device, name: Optional[str] = None
+                    ) -> torch.Tensor:
+    """float32 N(0, 1) of ``shape``: drawn from ``sample``, or given noise
+    (a tensor, or the entry ``name`` of a dict of tensors)."""
+    if isinstance(sample, (torch.Tensor, Mapping)):
+        return _given(sample, shape, device, name)
     if sample is None:
         raise ValueError("this model draws eps ~ N(0, 1) on every forward, "
                          "in eval mode too: pass a generator or the noise")
     return draw(torch.randn, sample, shape, device)
+
+
+def uniform(source: Optional[Sample], shape: Sequence[int],
+            device: torch.device) -> torch.Tensor:
+    """float32 U[0, 1) of ``shape``: drawn from ``source``, or given as a
+    tensor."""
+    if isinstance(source, torch.Tensor):
+        return _given(source, shape, device, None)
+    if source is None:
+        raise ValueError("this forward draws eps ~ U[0, 1) for the critic's "
+                         "interpolate: pass a generator or the noise")
+    return draw(torch.rand, source, shape, device)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -155,26 +188,37 @@ class Conv2d(nn.Conv2d):
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """Flax ``nn.ConvTranspose(kernel 5 or 4, strides 2, padding="SAME")``:
-    output exactly 2x the input.  The weight is torch's (in, out, kh, kw)
-    and holds the Flax kernel flipped on both spatial axes."""
+    """Flax ``nn.ConvTranspose(padding="SAME")``: kernel 5 or 4 at stride 2
+    (output exactly 2x the input), or kernel 3 at stride 1 (``GMVAEYou``;
+    output the input's size).  The weight is torch's (in, out, kh, kw) and
+    holds the Flax kernel flipped on both spatial axes."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 5, dtype: torch.dtype = torch.float32):
-        if kernel_size not in (4, 5):
-            raise ValueError(f"SAME ConvTranspose of kernel {kernel_size}")
-        super().__init__(in_channels, out_channels, kernel_size, stride=2,
-                         padding=1)
+                 kernel_size: int = 5, dtype: torch.dtype = torch.float32,
+                 stride: int = 2):
+        if (stride, kernel_size) not in ((2, 4), (2, 5), (1, 3)):
+            raise ValueError(f"SAME ConvTranspose of kernel {kernel_size} "
+                             f"at stride {stride}")
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=1)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = x.shape[-2:]
+        s = self.stride[0]
         y = F.conv_transpose2d(
             x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-            self.bias.to(self.compute_dtype), stride=2, padding=1)
+            self.bias.to(self.compute_dtype), stride=s, padding=1)
         # k=5: padding=1 pads the dilated input by (3, 3), Flax by (3, 2);
-        # k=4: both pad (2, 2) and the crop keeps everything
-        return y[..., : 2 * H, : 2 * W]
+        # k=4: both pad (2, 2) and the crop keeps everything; k=3 at stride
+        # 1: both pad (1, 1), a plain SAME correlation with the Flax kernel
+        return y[..., : s * H, : s * W]
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, 2H, 2W), output row and column i read input
+    i // 2: ``jax.image.resize(method="nearest")`` at an exact factor 2."""
+    return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
 class Linear(nn.Linear):
@@ -315,3 +359,26 @@ class UnifiedDecoder(nn.Module):
             x = getattr(self, f"dec_convT_{i}")(x)
             x = leaky_relu(getattr(self, f"dec_norm_{i}")(x))
         return self.dec_conv_final(x).to(torch.float32)
+
+
+class MLPDiscriminator(nn.Module):
+    """Latent critic of the adversarial autoencoders: Dense ``hidden[i]``
+    (``disc_dense_{i}``) with LeakyReLU 0.2 (``tf.nn.leaky_relu``, not the
+    backbone's 0.3), then Dense 1 (``disc_out``); output float32."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int] = (50, 50),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden = tuple(hidden)
+        n = in_features
+        for i, width in enumerate(self.hidden):
+            self.add_module(f"disc_dense_{i}", Linear(n, width, dtype))
+            n = width
+        self.disc_out = Linear(n, 1, dtype)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = z
+        for i in range(len(self.hidden)):
+            h = leaky_relu(getattr(self, f"disc_dense_{i}")(h),
+                           LEAKY_SLOPE_ZIMMERER)
+        return self.disc_out(h).to(torch.float32)

@@ -2,11 +2,15 @@
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/models/
 registry.py`, with its metadata: ``reconstruction_key`` (the output that is
-the reconstruction), ``takes_context`` (a second, context-masked input) and
-``rngs`` (the random streams the model draws: ``dropout``, and ``sample``
-for the VAEs' ``eps``).  Ported, in their parity architecture: the AEs, the
-VAEs and the ceVAEs.  Every other name of the JAX registry, and the
-non-parity ``spaceToDepthStem``/``depthToSpaceHead`` options, raise
+the reconstruction: ``xz_mu`` for the GMVAEs), ``takes_prior_z`` (the
+adversarial models, whose forward takes a prior latent), ``takes_context``
+(a second, context-masked input) and ``rngs`` (the random streams the model
+draws: ``dropout``; ``sample`` for the normals of the VAEs and GMVAEs;
+``gp`` for the critic interpolate's eps).  Ported, in their parity
+architecture: the AEs, the VAEs, the ceVAEs, the three GMVAEs, the
+constrained AE and the two latent-critic adversarial AEs.  Chen's
+constrained AAE, the fAnoGANs and AnoVAEGAN, and the non-parity
+``spaceToDepthStem``/``depthToSpaceHead`` options, raise
 ``NotImplementedError`` until their slice lands.
 """
 
@@ -20,8 +24,10 @@ from torch import nn
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
+    aae,
     ae,
     cevae,
+    gmvae,
     vae,
 )
 
@@ -30,6 +36,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
 class ModelSpec:
     build: Callable[[Config, torch.dtype], nn.Module]
     reconstruction_key: str = "x_hat"
+    takes_prior_z: bool = False
     takes_context: bool = False
     rngs: Tuple[str, ...] = ("dropout",)
 
@@ -48,7 +55,24 @@ def _std(cls):
     return build
 
 
+def _gmvae(cls):
+    def build(config: Config, dtype: torch.dtype) -> nn.Module:
+        return cls(
+            image_size=config.outputWidth,
+            channels=config.numChannels,
+            intermediate_resolution=config.intermediateResolutions[0],
+            dim_c=config.dim_c,
+            dim_z=config.dim_z,
+            dim_w=config.dim_w,
+            dropout_rate=config.dropout_rate,
+            dtype=dtype,
+        )
+
+    return build
+
+
 _SAMPLE = ("dropout", "sample")
+_GP = ("dropout", "gp")
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {
     "autoencoder": ModelSpec(_std(ae.Autoencoder)),
@@ -62,16 +86,22 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
     "context_encoder_variational_autoencoder_Zimmerer": ModelSpec(
         _std(cevae.ContextEncoderVAEZimmerer), takes_context=True,
         rngs=_SAMPLE),
+    "gaussian_mixture_variational_autoencoder": ModelSpec(
+        _gmvae(gmvae.GMVAE), reconstruction_key="xz_mu", rngs=_SAMPLE),
+    "gaussian_mixture_variational_autoencoder_spatial": ModelSpec(
+        _gmvae(gmvae.GMVAESpatial), reconstruction_key="xz_mu",
+        rngs=_SAMPLE),
+    "gaussian_mixture_variational_autoencoder_You": ModelSpec(
+        _gmvae(gmvae.GMVAEYou), reconstruction_key="xz_mu", rngs=_SAMPLE),
+    "adversarial_autoencoder": ModelSpec(
+        _std(aae.AdversarialAutoencoder), takes_prior_z=True, rngs=_GP),
+    "constrained_autoencoder": ModelSpec(_std(aae.ConstrainedAutoencoder)),
+    "constrained_adversarial_autoencoder": ModelSpec(
+        _std(aae.ConstrainedAAE), takes_prior_z=True, rngs=_GP),
 }
 
 # the rest of the JAX registry, queued in ROADMAP.md
 NOT_YET_PORTED = (
-    "gaussian_mixture_variational_autoencoder",
-    "gaussian_mixture_variational_autoencoder_spatial",
-    "gaussian_mixture_variational_autoencoder_You",
-    "adversarial_autoencoder",
-    "constrained_autoencoder",
-    "constrained_adversarial_autoencoder",
     "constrained_adversarial_autoencoder_Chen",
     "fanogan",
     "fanogan_schlegl",

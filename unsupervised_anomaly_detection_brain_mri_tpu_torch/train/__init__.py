@@ -1,1 +1,1 @@
-"""Trainers of the port (the ``AE`` trainer so far)."""
+"""Trainers of the port (``train/registry.py`` lists them)."""

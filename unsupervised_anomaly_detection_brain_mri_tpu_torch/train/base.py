@@ -1,6 +1,7 @@
-"""Trainer base and the deterministic trainers (``AE``, ``VAE``,
-``VAE_You``, ``CE``, ``ceVAE``): init, training, checkpoints,
-reconstruction, input restoration.
+"""Trainer base and the single-optimizer trainers (``AE``, ``VAE``,
+``VAE_You``, ``CE``, ``ceVAE``, ``GMVAE``, ``GMVAE_spatial``,
+``ConstrainedAE``): init, training, checkpoints, reconstruction, input
+restoration.  The adversarial trainers are in ``train/gan.py``.
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/train/base.py`.
 The trainer owns its model, its optimizer and its dropout generator on an
@@ -19,12 +20,12 @@ explicit ``device``; together they are the state (the JAX package's
     with ``streamPool``) stay on the host and stream in chunks of
     ``streamPoolChunkBatches`` batches, with the same updates bit for bit;
   * the model's inputs come from ``model_inputs`` (a context-masked copy
-    for ``CE`` and ``ceVAE`` in TRAIN) and the losses may see them
-    (``compute_losses_with_inputs``);
-  * ``VAE_You``'s ``tv_lambda`` sweep after training, written to
-    ``tv_lambda.json``: the (lambda, slice) pairs restore together, up to
-    ``SWEEP_CHUNK_SLICES`` slices at a time, each with its own lambda,
-    since the restoration objective is per sample;
+    for ``CE`` and ``ceVAE`` in TRAIN, a prior latent for the adversarial
+    models) and the losses may see them (``compute_losses_with_inputs``);
+  * the ``tv_lambda`` sweep of ``VAE_You`` and the GMVAEs after training,
+    written to ``tv_lambda.json``: the (lambda, slice) pairs restore
+    together, up to ``SWEEP_CHUNK_SLICES`` slices at a time, each with its
+    own lambda, since the restoration objective is per sample;
   * the sidecars ``config.json``, ``curves.json``, ``Curves.npy`` and
     ``tv_lambda.json``.
 
@@ -32,16 +33,19 @@ Checkpoints: ``<workdir>/torch/model.pt`` holds the weights that serving
 loads (a ``state_dict``).  Beside it ``<workdir>/torch/ckpt/epoch_NNNNNN.pt``
 holds the full state after an epoch (model, optimizer, generator states,
 global step, epoch); the newest ``keepCheckpoints`` are kept.  All are
-loaded with ``weights_only=True``.
+loaded with ``weights_only=True``.  ``fit`` sets ``epoch`` before each
+TRAIN pass, for the trainers whose step depends on it (``AAE``).
 
 Random streams: weights are drawn from a CPU generator seeded with
 ``config.seed`` (Glorot uniform).  Training draws dropout, instance noise
 and context masks from ``generator`` on the trainer's device, seeded with
-``config.seed``, and the VAEs' ``eps`` (in TRAIN and VAL) from
+``config.seed``, the VAEs' and GMVAEs' normals (in TRAIN and VAL) from
 ``sample_generator``, seeded with ``config.seed + 1`` (models whose spec
-has a ``sample`` stream).  Reconstruction takes its own source
-(``reconstruct_device(..., generator=)``, a generator seeded 0 by
-default), which drives both dropout and ``eps``.  JAX's threefry streams
+has a ``sample`` stream), and the critic interpolate's eps from
+``gp_generator``, seeded with ``config.seed + 2`` (a ``gp`` stream).
+Reconstruction takes its own source (``reconstruct_device(...,
+generator=)``, a generator seeded 0 by default), which drives dropout, the
+model's noise and the inputs' draws (a prior latent).  JAX's threefry streams
 have no torch counterpart, so the draws differ between the packages
 (trajectories are compared at ``dropout_rate=0`` with given noise).
 """
@@ -92,6 +96,9 @@ _EPOCH_FILE = re.compile(r"epoch_(\d+)\.pt$")
 # slices per restoration of the lambda sweep: 1,280 slices of 128x128 in
 # bf16 peak at 10.6 GiB of device memory on an H100
 SWEEP_CHUNK_SLICES = 1280
+# each generator's seed is config.seed + its offset
+STREAM_SEED_OFFSETS = {"generator": 0, "sample_generator": 1,
+                       "gp_generator": 2}
 
 Batch = Dict[str, Any]
 
@@ -131,14 +138,19 @@ class BaseTrainer:
         self.dtype = dtype_of(config.compute_dtype)
         model, self.spec = get_model(config, self.dtype)
         self.model = model.to(self.device)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            config.seed)
-        self.sample_generator: Optional[torch.Generator] = None
-        if "sample" in self.spec.rngs:
-            self.sample_generator = torch.Generator(
-                device=self.device).manual_seed(config.seed + 1)
+        def stream(key: str, rng: Optional[str] = None
+                   ) -> Optional[torch.Generator]:
+            if rng is not None and rng not in self.spec.rngs:
+                return None
+            return torch.Generator(device=self.device).manual_seed(
+                config.seed + STREAM_SEED_OFFSETS[key])
+
+        self.generator: torch.Generator = stream("generator")
+        self.sample_generator = stream("sample_generator", "sample")
+        self.gp_generator = stream("gp_generator", "gp")
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
+        self.epoch = 0
         self.history: List[Dict[str, Any]] = []
         self.tv_lambda_value = float(config.tv_lambda)
         self.streamed_last_epoch = False
@@ -150,8 +162,10 @@ class BaseTrainer:
                    ) -> nn.Module:
         """Glorot-uniform weights, zero biases, BatchNorm at scale 1, bias
         0 and running statistics (0, 1), drawn on the CPU from
-        ``generator`` (default: seeded with ``config.seed``).  Also starts
-        a fresh optimizer, step count and random streams."""
+        ``generator`` (default: seeded with ``config.seed``); a module's
+        bare parameters (the GMVAEs' 0.1 bias) from its
+        ``init_bare_parameters``.  Also starts a fresh optimizer, step
+        count and random streams."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.config.seed)
         with torch.no_grad():
@@ -164,17 +178,25 @@ class BaseTrainer:
                     nn.init.xavier_uniform_(w, generator=generator)
                     module.weight.copy_(w)
                     module.bias.zero_()
+                if hasattr(module, "init_bare_parameters"):
+                    module.init_bare_parameters()
         self.optimizer = self.make_optimizer()
         self.step = 0
-        self.generator.manual_seed(self.config.seed)
-        if self.sample_generator is not None:
-            self.sample_generator.manual_seed(self.config.seed + 1)
+        for k, g in self._streams().items():
+            g.manual_seed(self.config.seed + STREAM_SEED_OFFSETS[k])
         print(f"[{self.__class__.__name__}] {self.config.model}: "
               f"{count_params(self.model):,} parameters")
         return self.model
 
     def make_optimizer(self) -> torch.optim.Optimizer:
         return make_optimizer(self.config, self.model.parameters())
+
+    def _streams(self) -> Dict[str, torch.Generator]:
+        """The trainer's generators by checkpoint key."""
+        streams = {"generator": self.generator,
+                   "sample_generator": self.sample_generator,
+                   "gp_generator": self.gp_generator}
+        return {k: g for k, g in streams.items() if g is not None}
 
     # ------------------------------------------------------------------
     # steps
@@ -189,25 +211,37 @@ class BaseTrainer:
                             device=x.device, dtype=x.dtype)
         return {**batch, "x": x + 0.01 * noise}
 
-    def model_inputs(self, batch: Batch, train: bool
+    def model_inputs(self, batch: Batch, train: bool,
+                     generator: Optional[Sample] = None
                      ) -> Tuple[torch.Tensor, ...]:
         """Positional inputs of the model call (the context-encoder
-        trainers add or substitute a masked image)."""
+        trainers add or substitute a masked image, the adversarial ones add
+        a prior latent); their draws come from ``generator`` (default: the
+        trainer's)."""
         return (batch["x"],)
+
+    def _noise(self, sample: Optional[Sample], gp: Optional[Sample]
+               ) -> Dict[str, Any]:
+        """The model call's noise sources: ``sample``, and ``gp`` for the
+        models with a ``gp`` stream."""
+        kwargs = {"sample": sample}
+        if "gp" in self.spec.rngs:
+            kwargs["gp"] = gp
+        return kwargs
 
     def apply_model(self, batch: Batch, train: bool
                     ) -> Tuple[Dict[str, Any], Tuple[torch.Tensor, ...]]:
         """Forward in train mode (dropout from the trainer's generator,
         batch statistics) or eval mode (no dropout, running statistics);
-        ``eps`` from the sample generator in both.  Returns the outputs and
-        the model's inputs.  Instance noise reaches the model's input only:
-        the losses see the clean batch."""
+        the model's noise from the sample and gp generators in both.
+        Returns the outputs and the model's inputs.  Instance noise reaches
+        the model's input only: the losses see the clean batch."""
         inputs = self.model_inputs(
             self.maybe_add_instance_noise(batch, train), train)
         self.model.train(train)
         outputs = self.model(
             *inputs, dropout_generator=self.generator if train else None,
-            sample=self.sample_generator)
+            **self._noise(self.sample_generator, self.gp_generator))
         return outputs, inputs
 
     def compute_losses(self, outputs: Dict[str, torch.Tensor],
@@ -368,6 +402,7 @@ class BaseTrainer:
                 raise ValueError(
                     f"batchsize {c.batchsize} exceeds the training pool of "
                     f"{n_train} slices — no full batch can be formed")
+            self.epoch = epoch
             prof = None
             if self.options.profileDir and epoch == start_epoch:
                 prof = self._profiler()
@@ -509,9 +544,7 @@ class BaseTrainer:
         _atomic_save({
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
-            "generator": self.generator.get_state(),
-            **({"sample_generator": self.sample_generator.get_state()}
-               if self.sample_generator is not None else {}),
+            **{k: g.get_state() for k, g in self._streams().items()},
             "step": int(self.step),
             "epoch": int(epoch),
         }, os.path.join(ckpt_dir, f"epoch_{epoch:06d}.pt"))
@@ -580,9 +613,8 @@ class BaseTrainer:
         if self.optimizer is None:
             self.optimizer = self.make_optimizer()
         self.optimizer.load_state_dict(ckpt["optimizer"])
-        self.generator.set_state(ckpt["generator"])
-        if self.sample_generator is not None:
-            self.sample_generator.set_state(ckpt["sample_generator"])
+        for k, g in self._streams().items():
+            g.set_state(ckpt[k])
         self.step = int(ckpt["step"])
         print(f"Restored checkpoint at epoch {epoch}")
         self._load_tv_lambda()
@@ -606,11 +638,11 @@ class BaseTrainer:
     def _call(self, inputs: Sequence[torch.Tensor], dropout: bool,
               generator: Sample) -> Dict[str, torch.Tensor]:
         """Eval-mode forward; ``generator`` draws the dropout masks (when
-        ``dropout``) and ``eps``."""
+        ``dropout``) and the model's noise."""
         self.model.eval()
         return self.model(*inputs,
                           dropout_generator=generator if dropout else None,
-                          sample=generator)
+                          **self._noise(generator, generator))
 
     @torch.no_grad()
     def reconstruct_device(self, x: torch.Tensor, dropout: bool = False,
@@ -619,12 +651,14 @@ class BaseTrainer:
         """Reconstruct a batch of (B, H, W, C) slices on the trainer's
         device in eval mode, as one batch; with ``dropout`` (MC sampling)
         dropout masks are drawn from ``generator``, which also draws the
-        VAEs' ``eps`` (default: a generator seeded 0).  A tensor given as
-        ``generator`` is the noise itself (``eps`` only).  Returns
-        ``reconstruction`` plus every model output."""
+        model's noise and a prior latent (default: a generator seeded 0).
+        A tensor (or dict of tensors) given as ``generator`` is the noise
+        itself.  Returns ``reconstruction`` plus every model output."""
         x = self._slices(x)
-        outputs = self._call(self.model_inputs({"x": x}, train=False),
-                             dropout, self._eval_generator(generator))
+        generator = self._eval_generator(generator)
+        outputs = self._call(
+            self.model_inputs({"x": x}, train=False, generator=generator),
+            dropout, generator)
         return {"reconstruction": outputs[self.spec.reconstruction_key],
                 **outputs}
 
@@ -670,25 +704,11 @@ class VAE(BaseTrainer):
         return {k: v for k, v in out.items() if k != "pixel_loss"}
 
 
-class VAE_You(VAE):
-    """VAE whose reconstruction is the input restored by ``restore_steps``
-    steps of gradient descent on pixel loss + ``tv_lambda`` x TV, with
-    ``tv_lambda`` swept after training when the config leaves it negative."""
-
-    def post_fit(self, dataset) -> None:
-        if self.tv_lambda_value < 0:
-            self.determine_best_lambda(dataset)
-
-    def _restoration_fn(self, dropout: bool):
-        """(x, generator) -> (per-sample L1 + KL, x_hat) from ONE eval-mode
-        forward; ``dropout`` draws dropout masks too (MC sampling)."""
-
-        def outputs_fn(x: torch.Tensor, generator: Sample):
-            out = self._call((x,), dropout, generator)
-            rec = L.sum_per_sample(L.l1_elem(x, out["x_hat"]))
-            return rec + L.vae_kl(out["z_mu"], out["z_sigma"]), out["x_hat"]
-
-        return outputs_fn
+class InputRestoration:
+    """Reconstruction by input restoration, for a trainer with a
+    ``_restoration_fn``: ``restore_steps`` steps of gradient descent on
+    the restoration loss + ``tv_lambda`` x TV (``tv_lambda`` clamped at
+    0), and whole stacks of volumes in one restoration."""
 
     def _restore(self, x: torch.Tensor, dropout: bool,
                  generator: Sample) -> torch.Tensor:
@@ -726,16 +746,37 @@ class VAE_You(VAE):
         return {"reconstruction": restored.reshape(vols.shape)}
 
 
+class VAE_You(InputRestoration, VAE):
+    """VAE whose reconstruction is the input restored by ``restore_steps``
+    steps of gradient descent on pixel loss + ``tv_lambda`` x TV, with
+    ``tv_lambda`` swept after training when the config leaves it negative."""
+
+    def post_fit(self, dataset) -> None:
+        if self.tv_lambda_value < 0:
+            self.determine_best_lambda(dataset)
+
+    def _restoration_fn(self, dropout: bool):
+        """(x, generator) -> (per-sample L1 + KL, x_hat) from ONE eval-mode
+        forward; ``dropout`` draws dropout masks too (MC sampling)."""
+
+        def outputs_fn(x: torch.Tensor, generator: Sample):
+            out = self._call((x,), dropout, generator)
+            rec = L.sum_per_sample(L.l1_elem(x, out["x_hat"]))
+            return rec + L.vae_kl(out["z_mu"], out["z_sigma"]), out["x_hat"]
+
+        return outputs_fn
+
+
 class CE(BaseTrainer):
     """Context-encoder AE: trained on context-masked inputs, with the L1
     loss against the clean image."""
 
     needs_brainmask = True
 
-    def model_inputs(self, batch, train):
+    def model_inputs(self, batch, train, generator=None):
         if train and "mask" in batch:
-            return (random_context_masks(self.generator, batch["x"],
-                                         batch["mask"]),)
+            return (random_context_masks(generator or self.generator,
+                                         batch["x"], batch["mask"]),)
         return (batch["x"],)
 
     def compute_losses(self, outputs, batch):
@@ -750,10 +791,10 @@ class CeVAE(BaseTrainer):
 
     needs_brainmask = True
 
-    def model_inputs(self, batch, train):
+    def model_inputs(self, batch, train, generator=None):
         x = batch["x"]
         if train and "mask" in batch:
-            return (x, random_context_masks(self.generator, x,
+            return (x, random_context_masks(generator or self.generator, x,
                                             batch["mask"]))
         return (x, x)
 
@@ -776,3 +817,57 @@ class CeVAE(BaseTrainer):
 
         anomaly, _ = gradient_anomaly_map(outputs_fn, x)
         return {"reconstruction": x - lam * anomaly}
+
+
+class GMVAE(InputRestoration, BaseTrainer):
+    """Dense GMVAE: the 4-term loss; the reconstruction is the input
+    restored on the GMVAE loss + ``tv_lambda`` x TV, or ``xz_mu`` itself
+    when ``restore_steps`` <= 0.  The lambda sweep runs after training when
+    the config leaves ``tv_lambda`` negative and restores at all."""
+
+    spatial = False
+
+    def compute_losses(self, outputs, batch):
+        return L.gmvae_loss(batch["x"], outputs, self.config.dim_c,
+                            self.config.c_lambda, self.spatial)
+
+    def post_fit(self, dataset) -> None:
+        if self.tv_lambda_value < 0 and self.config.restore_steps > 0:
+            self.determine_best_lambda(dataset)
+
+    def _restoration_fn(self, dropout: bool):
+        """(x, generator) -> (the batch-mean GMVAE loss broadcast to (B,),
+        xz_mu) from ONE eval-mode forward.  Summed over B that is the loss
+        SUM, so each slice's pixel gradient is d l_j / dx_j with no 1/B
+        factor (the reference differentiates the scalar mean broadcast over
+        the per-sample TV vector), and zero-padded batch mates never change
+        a real slice's gradient."""
+        c = self.config
+
+        def outputs_fn(x: torch.Tensor, generator: Sample):
+            out = self._call((x,), dropout, generator)
+            loss = L.gmvae_loss(x, out, c.dim_c, c.c_lambda,
+                                self.spatial)["loss"]
+            return loss.expand(x.shape[0]), out["xz_mu"]
+
+        return outputs_fn
+
+    def reconstruct_device(self, x, dropout=False, generator=None):
+        if self.config.restore_steps <= 0:
+            return BaseTrainer.reconstruct_device(self, x, dropout, generator)
+        return super().reconstruct_device(x, dropout, generator)
+
+
+class GMVAE_spatial(GMVAE):
+    """Spatial GMVAE (and ``GMVAE_You``'s trainer): the spatial loss
+    reduction."""
+
+    spatial = True
+
+
+class ConstrainedAE(BaseTrainer):
+    """Constrained AE: per-sample mean L2 + rho x the latent consistency of
+    the reconstruction encoded again."""
+
+    def compute_losses(self, outputs, batch):
+        return L.constrained_loss(batch["x"], outputs, self.config.rho, "z")
