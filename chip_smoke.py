@@ -65,7 +65,18 @@ last line):
         RESTORE_FLIP_STEPS x restore_lr; e. warm VAE train slices/s at
         batch 8 and 128, the warm ``VAE_You`` ``evaluate()`` split and a
         warm lambda sweep, with their profiles queued for phase 9;
-  9. profiles, after every timing (a ``torch.profiler`` session slows
+  9. the GMVAE family and the latent-critic AAE family at full width
+     (a-e: ``GMVAE_spatial``, ``GMVAE_You`` and ``AAE`` through the CLI,
+     card vs CPU, timings), then the ResNet stack and the image critics:
+     f. ``constrainedAAE_Chen``, ``fAnoGAN`` (one WGAN and one encoder
+     epoch), ``fAnoGAN_schlegl`` and ``AnoVAEGAN`` through the protocol
+     and ``infer``, with each batch's updates per group counted; g. their
+     forwards card vs CPU within TOL, and one batch of each adversarial
+     schedule at batch 2 with 1 critic update, losses within SPREAD_FACTOR
+     x float32 rounding's spread; h. warm train slices/s of each schedule
+     with its FLOPs per step (``torch.utils.flop_counter``) and the rate
+     they make, and the warm Chen ``evaluate()`` split;
+ 10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
      kept in ``build/chip_smoke_profile.txt``.
@@ -101,15 +112,16 @@ TIMED_STEPS = 100
 KERNEL_BATCH = 10  # back-to-back kernel calls per pair of CUDA events
 STEP_PRESETS = ("VAE_Zimmerer", "ceVAE_Zimmerer", "AE_spatial", "CE",
                 "GMVAE", "constrainedAE", "constrainedAAE")
-AAE_TIMED_STEPS = 10  # an AAE step at ae_iters 20 is 41 substeps
+AAE_TIMED_STEPS = 5  # an AAE step at ae_iters 20 is 41 substeps
 WARM_STEPS = 3
 # card-vs-CPU drift of the 150-step restoration, in restore_lr steps: a
 # sign flip of the L1 or TV subgradient moves a voxel by whole multiples
 # of restore_lr (5 measured on an H100, phase 8d)
 RESTORE_FLIP_STEPS = 10
 # the 150-step CPU restoration of phase 8d runs on the middle slices of
-# its volume (each slice restores on its own): all 110 took 290-460 s
-RESTORE_CHECK_SLICES = 40
+# its volume (each slice restores on its own): all 110 took 290-460 s, 40
+# took ~110 s
+RESTORE_CHECK_SLICES = 20
 # the AAE critic's and generator's losses read the train-mode encoder's
 # z_, which one float32 rounding of the state moves ~100x further; they
 # are held to SPREAD_FACTOR x the spread of ROUNDING_RUNS CPU batches from
@@ -621,12 +633,22 @@ def adam_step_bound(t, b1, b2):
     return float(np.sqrt(np.sum(a * a / w)))
 
 
-def bn_fed_bias(name):
-    """The bias of a convolution that feeds a BatchNorm: its true gradient
-    is zero (BatchNorm removes it), so round-off steers its Adam steps."""
-    return name.endswith(".bias") and (".enc_conv_" in name
-                                       or ".dec_convT_" in name
-                                       or "intermediate_conv_reverse" in name)
+def free_bias(name):
+    """A bias whose true gradient is zero, so that round-off steers its Adam
+    steps: that of a convolution feeding a norm (the unified backbones'
+    convolutions, a ResNet block's conv1, the decoder's or generator's last
+    block), or an image critic's convolution or output bias, which reaches
+    the score only through LayerNorms or adds the same constant to the real
+    and the fake scores, whose difference the WGAN loss takes."""
+    return name.endswith(".bias") and (
+        ".enc_conv_" in name or ".dec_convT_" in name
+        or "intermediate_conv_reverse" in name) or name.endswith(
+        ".conv1.bias") or (
+        name.startswith(("decoder.res4.", "generator.res4."))
+        and name.endswith(("conv2.bias", "shortcut.bias"))) or (
+        name.startswith("disc_features.")
+        and name.endswith((".stem.bias", "conv2.bias", "shortcut.bias"))) \
+        or name == "disc_dense.bias"
 
 
 def compare_training(card, cpu, start, config, t, bound_of=None):
@@ -651,8 +673,9 @@ def compare_training(card, cpu, start, config, t, bound_of=None):
     than that change takes the opposite Adam step (at step 1 on an H100,
     1,126 of 1,627,249 elements, each by 2 lr, at most 3 in a tensor under
     3,000 elements).  A missing or wrong update moves most elements of its
-    tensor by ~lr and its relative update error to ~1.  The BN-fed conv
-    biases are held to the Adam bound only.  Every failing tensor is
+    tensor by ~lr and its relative update error to ~1.  The biases whose
+    true gradient is zero (``free_bias``) are held to the Adam bound
+    only.  Every failing tensor is
     named before the check fails."""
     import torch
 
@@ -672,7 +695,7 @@ def compare_training(card, cpu, start, config, t, bound_of=None):
         if float(d.max()) > kb:
             faults.append(f"{k}: max|diff| {float(d.max())} beyond the Adam "
                           f"bound {kb}")
-        if bn_fed_bias(k):
+        if free_bias(k):
             worst_fed = max(worst_fed, float(d.max()))
             continue
         n = int((d > 1e-5).sum())
@@ -714,7 +737,7 @@ def flipped_gradients(card, cpu, start, x):
     for k, p in cpu.model.named_parameters():
         q = card_params[k]
         mask = (q.detach().cpu() - p.detach()).abs() > 1e-5
-        if bn_fed_bias(k) or p.grad is None or not mask.any():
+        if free_bias(k) or p.grad is None or not mask.any():
             continue
         g, gc = p.grad, q.grad.cpu()
         dg = (gc - g).abs()
@@ -881,11 +904,13 @@ def defer_profile(key, fn, title):
     PROFILES.append((key, fn, title))
 
 
-def warm_train(trainer, pool, seed, label, timed_steps=TIMED_STEPS):
+def warm_train(trainer, pool, seed, label, timed_steps=TIMED_STEPS,
+               profiled_steps=None):
     """Warm slices/s of ``trainer`` over one run of ``timed_steps`` steps
     (the epoch's index matrix repeated, so the run's one index upload and
     one host sync are spread thin), by CUDA events, median of 3 runs; a
-    profile of one more run is queued under ``label + " train"``."""
+    profile of one more run (of its first ``profiled_steps`` steps, default
+    all) is queued under ``label + " train"``."""
     import numpy as np
     import torch
 
@@ -922,9 +947,11 @@ def warm_train(trainer, pool, seed, label, timed_steps=TIMED_STEPS):
           f"slices/s, {ms / steps.shape[0]:.3f} ms per step; the host's "
           f"enqueue of each run returned after "
           f"{[round(v, 1) for v in enqueue_ms]} ms")
+    profiled = steps[:profiled_steps]
     defer_profile(f"{label} train",
-                  lambda: trainer._run_epoch("TRAIN", pool, steps),
-                  f"{steps.shape[0]} warm {label} train steps (batch {bs})")
+                  lambda: trainer._run_epoch("TRAIN", pool, profiled),
+                  f"{profiled.shape[0]} warm {label} train steps (batch "
+                  f"{bs})")
     return sps
 
 
@@ -1084,8 +1111,11 @@ def run_protocol(base, name, extra=()):
           f"evaluated volumes (3 x {n_test} TEST + {n_val} VAL)")
     with open(os.path.join(wd, "curves.json")) as f:
         history = json.load(f)
-    losses = [h["loss"] for h in history]
-    check(losses and np.isfinite(losses).all(), f"{name}: losses {history}")
+    # fAnoGAN's entries carry gen_loss (WGAN phase) or enc_loss
+    losses = [h.get("loss", h.get("enc_loss", h.get("gen_loss")))
+              for h in history]
+    check(losses and None not in losses and np.isfinite(losses).all(),
+          f"{name}: losses {history}")
     for file in ("torch/model.pt", "calibration.json", "config.json"):
         check(os.path.isfile(os.path.join(wd, file)),
               f"{name}: missing {file}")
@@ -1781,6 +1811,359 @@ def phase_families_timings(cudnn_tf32, matmul_tf32, spatial_wd):
     return sps, total, split
 
 
+# ---------------------------------------------------------------------------
+# phase 9f-9h: the ResNet stack (Chen's constrained AAE, Schlegl's fAnoGAN)
+# and the image critics (fAnoGAN, AnoVAEGAN) at full width (128x128, batch
+# 8, the presets' zDim, ResNet dim 64, bf16)
+
+
+LAST_PRESETS = ("constrainedAAE_Chen", "fAnoGAN", "fAnoGAN_schlegl",
+                "AnoVAEGAN")
+# (label, preset, fAnoGAN encoder phase or Chen's epoch, timed steps,
+# profiled steps): an epoch-0 Chen step is 41 substeps (~1 s on an H100),
+# a WGAN step 6 with 5 grad-of-grad penalties, an AnoVAEGAN step 7; a
+# profile's summary costs ~0.4 s per substep of these models, so the
+# profiles cover a few steps
+GAN_TIMINGS = (("Chen ae_iters 20", "constrainedAAE_Chen", 0, 2, 1),
+               ("Chen ae_iters 1", "constrainedAAE_Chen", 6, 6, 2),
+               ("fAnoGAN WGAN", "fAnoGAN", 0, 10, 3),
+               ("fAnoGAN encoder", "fAnoGAN", 1, 30, 10),
+               ("fAnoGAN_schlegl WGAN", "fAnoGAN_schlegl", 0, 4, 1),
+               ("fAnoGAN_schlegl encoder", "fAnoGAN_schlegl", 1, 30, 10),
+               ("AnoVAEGAN", "AnoVAEGAN", 0, 10, 3))
+# the protocols of phase 9f train and evaluate on 16 slices per volume
+# (the CLI's slice range; width and batch are the presets'): an epoch of
+# the full 110 takes Chen ~80 s on an H100
+GAN_SLICES = ("-s", "20", "-e", "36")
+# dense bf16 peak of an H100 SXM (TFLOP/s), for the achieved share
+H100_BF16_TFLOPS = 989.0
+
+
+def schedule_counts(trainer_cls):
+    """Patches ``trainer_cls`` to count its ``update`` calls per group and
+    its batches per phase tag; returns (counts, undo)."""
+    import collections
+
+    counts = collections.Counter()
+    real_update, real_step = trainer_cls.update, trainer_cls.train_step
+
+    def counted_update(self, group, loss):
+        counts[group] += 1
+        return real_update(self, group, loss)
+
+    def counted_step(self, batch):
+        counts[self.phase_tag(self.epoch)] += 1
+        return real_step(self, batch)
+
+    trainer_cls.update, trainer_cls.train_step = counted_update, counted_step
+
+    def undo():
+        trainer_cls.update, trainer_cls.train_step = real_update, real_step
+
+    return counts, undo
+
+
+def phase_last_presets(base, scan):
+    """f. The four presets through the protocol on GAN_SLICES (fAnoGAN's
+    ``-E 1`` is one WGAN and one encoder epoch), each then served by
+    ``infer`` on a 110-slice scan: each batch
+    runs the updates its schedule says (Chen in epoch 0: 20 AE, 20 critic,
+    1 generator; fAnoGAN: 1 generator and 5 critic, then 1 encoder;
+    AnoVAEGAN: 1 VAE, 1 generator, 5 critic); the histories carry their
+    phases (fAnoGAN: TRAIN_WGAN, TRAIN_Encoder, VAL) with finite losses;
+    the checkpoints hold each group's optimizer.  Returns the median
+    launches and the workdirs."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import gan
+
+    expected = {
+        "constrainedAAE_Chen": (gan.ConstrainedAAE, ["TRAIN", "VAL"],
+                                lambda n: {"ae": 20 * n["TRAIN"],
+                                           "disc": 20 * n["TRAIN"],
+                                           "gen": n["TRAIN"]}),
+        "fAnoGAN": (gan.FAnoGAN, ["TRAIN_WGAN", "TRAIN_Encoder", "VAL"],
+                    lambda n: {"gen": n["TRAIN_WGAN"],
+                               "disc": 5 * n["TRAIN_WGAN"],
+                               "enc": n["TRAIN_Encoder"]}),
+        "AnoVAEGAN": (gan.AnoVAEGAN, ["TRAIN", "VAL"],
+                      lambda n: {"vae": n["TRAIN"], "gen": n["TRAIN"],
+                                 "disc": 5 * n["TRAIN"]}),
+    }
+    expected["fAnoGAN_schlegl"] = expected["fAnoGAN"]
+    launches, wds = 0, {}
+    for name in LAST_PRESETS:
+        cls, phases, want = expected[name]
+        counts, undo = schedule_counts(cls)
+        try:
+            wd, n, _ = run_protocol(base, name, GAN_SLICES)
+        finally:
+            undo()
+        launches += n
+        wds[name] = wd
+        batches = {k: v for k, v in counts.items() if k.startswith("TRAIN")}
+        updates = {k: counts[k] for k in want(counts)}
+        check(sorted(batches) == sorted(p for p in phases if p != "VAL")
+              and min(batches.values()) > 0 and updates == want(counts),
+              f"{name} schedule: batches {batches}, updates {updates}")
+        with open(os.path.join(wd, "curves.json")) as f:
+            history = json.load(f)
+        check([h["phase"] for h in history] == phases
+              and all(np.isfinite(v) for h in history for k, v in h.items()
+                      if k not in ("epoch", "phase")),
+              f"{name} history {history}")
+        epochs = 1 + max(h["epoch"] for h in history)
+        ckpt = torch.load(os.path.join(
+            wd, "torch", "ckpt", f"epoch_{epochs:06d}.pt"),
+            map_location="cpu", weights_only=True)
+        check(sorted(ckpt["optimizer"]) == sorted(want(counts)),
+              f"{name} checkpoint optimizers {sorted(ckpt['optimizer'])}")
+        served = serve_once(wd, scan, os.path.join(base, f"served_{name}"))
+        launches += served
+        print(f"[{name}] batches {batches}, updates {updates}; history "
+              + "; ".join(f"{h['phase']} " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in sorted(h.items())
+                  if k not in ("epoch", "phase")) for h in history)
+              + f"; checkpoint holds optimizers {sorted(ckpt['optimizer'])};"
+              f" infer: {served} median launch")
+    return launches, wds
+
+
+def gan_noise(config, n, g):
+    """The draws of one forward of a preset's model, made on the CPU: the
+    prior z, the noise seam's ``sample`` (AnoVAEGAN's eps) and ``gp``
+    (Chen's scalar eps, the image critics' per-sample alpha)."""
+    import torch
+
+    gp_shape = () if config.model.endswith("_Chen") else (n, 1, 1, 1)
+    return (torch.randn((n, config.zDim), generator=g),
+            {"sample": torch.randn((n, config.zDim), generator=g),
+             "gp": torch.rand(gp_shape, generator=g)})
+
+
+def gan_batch_card_vs_cpu(name, phase, pool, idxs):
+    """One batch of ``name``'s schedule at batch 2 with 1 critic update,
+    float32, dropout 0, on the card and on the CPU from the CPU's state
+    after 2 batches, every draw made on the CPU from one seed: each loss
+    within TOL relative or SPREAD_FACTOR x float32 rounding's spread of it
+    (ROUNDING_RUNS CPU batches from the start state moved by one rounding),
+    whichever is larger, and the parameters within ``compare_training``'s
+    bounds.  ``phase`` is Chen's epoch or fAnoGAN's encoder phase."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    config = preset(name, batchsize=2, dropout_rate=0.0, learningrate=5e-5,
+                    compute_dtype="float32")
+    epoch = config.numEpochs * phase if config.trainer == "fAnoGAN" \
+        else phase
+
+    def make(dev):
+        t = get_trainer(config.trainer)(config, device=dev)
+        t.init_state()
+        t.d_iters = 1
+        t.epoch = epoch
+        return t
+
+    def run(trainer, rows):
+        g = torch.Generator().manual_seed(SEED + 3)
+        dev = trainer.device
+        trainer.sample_z = lambda generator, n: gan_noise(config, n, g)[0].to(
+            dev)
+        trainer._noise = lambda sample, gp: {
+            k: v.to(dev) for k, v in gan_noise(config, 2, g)[1].items()}
+        batch = {"x": torch.from_numpy(pool[rows]).to(dev)}
+        return {k: float(v) for k, v in trainer.train_step(batch).items()}
+
+    card, cpu = make(DEVICE), make("cpu")
+    for rows in idxs[:2]:  # Adam's first steps move every element by lr
+        run(cpu, rows)
+    start = {k: v.detach().clone() for k, v in cpu.model.state_dict().items()}
+    opt_start = copy.deepcopy(cpu.optimizer.state_dict())
+    card.model.load_state_dict(start)
+    card.optimizer.load_state_dict(copy.deepcopy(opt_start))
+    m_card, m_cpu = run(card, idxs[2]), run(cpu, idxs[2])
+    spread = dict.fromkeys(m_cpu, 0.0)
+    pg = torch.Generator().manual_seed(SEED + 1)
+    for _ in range(ROUNDING_RUNS):
+        t = make("cpu")
+        t.model.load_state_dict({
+            k: v * (1 + 2 ** -23 * torch.randn(v.shape, generator=pg))
+            if v.is_floating_point() else v for k, v in start.items()})
+        t.optimizer.load_state_dict(copy.deepcopy(opt_start))
+        m = run(t, idxs[2])
+        spread = {k: max(s, abs(m[k] - m_cpu[k])) for k, s in spread.items()}
+    diff = {k: abs(m_card[k] - v) for k, v in m_cpu.items()}
+    over = {k: d / max(TOL * abs(m_cpu[k]), SPREAD_FACTOR * spread[k])
+            if d > 0 else 0.0 for k, d in diff.items()}
+    label = f"{name} {card.phase_tag(epoch)}"
+    stepped = [g for g in card.groups if any(
+        not torch.equal(card.model.state_dict()[n].cpu(), start[n])
+        for n in card.groups[g])]
+
+    def bound_of(k):
+        """Both devices' largest moves: Adam's third step of each group
+        that this batch updates and that holds ``k``."""
+        steps = max(1, sum(k in card.groups[g] for g in stepped))
+        return 2 * config.learningrate * steps * adam_step_bound(
+            3, config.beta1, config.beta2) + 1e-6
+
+    bound, worst_free, p_worst, beyond, frac, upd = compare_training(
+        card.model.state_dict(), cpu.model.state_dict(), start, config, 3,
+        bound_of)
+    print(f"[last-card-vs-cpu] {label} batch (batch 2, d_iters 1, "
+          f"updated groups {stepped}) from the CPU's state after 2 batches, "
+          f"float32: losses card {m_card}, cpu {m_cpu}; relative diff "
+          + ", ".join(f"{k} {d / max(abs(m_cpu[k]), 1e-30):.2e}"
+                      for k, d in diff.items())
+          + f"; CPU spread under one rounding of the state ({ROUNDING_RUNS} "
+          f"runs) " + ", ".join(f"{k} {v:.2e}" for k, v in spread.items())
+          + f"; diff / max(TOL, {SPREAD_FACTOR} x spread) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in over.items())
+          + f"; parameters max|diff| {p_worst:.3e}, {beyond} elements beyond "
+          f"1e-5 (largest share in one tensor {frac:.3e}), largest relative "
+          f"update error {upd:.3e} (bound {UPDATE_TOL}); zero-gradient "
+          f"biases max|diff| {worst_free:.3e}")
+    check(max(over.values()) <= 1.0, f"{label} losses differ: {diff}")
+    check(sorted(stepped) == sorted(
+        {"fAnoGAN": ["enc"] if phase else ["disc", "gen"],
+         "ConstrainedAAE": ["ae", "disc", "gen"],
+         "AnoVAEGAN": ["disc", "gen", "vae"]}[config.trainer]),
+        f"{label}: groups updated {stepped}")
+    return max(d / max(abs(m_cpu[k]), 1e-30) for k, d in diff.items())
+
+
+def phase_last_card_vs_cpu():
+    """g. Float32, TF32 off, the same seeded weights on the card and the
+    CPU and the same draws made on the CPU (prior z, eps, alpha; no
+    dropout): the four networks' forwards of 8 slices within TOL of each
+    output's scale; one batch of each adversarial schedule (Chen, fAnoGAN
+    in each phase, Schlegl's WGAN phase, AnoVAEGAN) by
+    ``gan_batch_card_vs_cpu`` at batch 2 with 1 critic update: at 128x128
+    a CPU batch of Chen's epoch-0 schedule (41 substeps at batch 8) is ~25
+    TFLOP."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
+        epoch_indices,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, _, healthy, _ = lesion_cohort("fAnoGAN")
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.from_numpy(np.asarray(healthy.slices("VAL")[:8], np.float32))
+    worst = 0.0
+    for name in LAST_PRESETS:
+        config = preset(name, compute_dtype="float32")
+        pair = {dev: get_trainer(config.trainer)(config, device=dev)
+                for dev in (DEVICE, "cpu")}
+        z, noise = gan_noise(config, 8, g)
+        out = {}
+        for dev, t in pair.items():
+            t.init_state()
+            t.model.eval()
+            args = (x, z) if t.spec.takes_prior_z else (x,)
+            with torch.no_grad():
+                out[dev] = t.model(*[a.to(dev) for a in args],
+                                   **{k: v.to(dev) for k, v in noise.items()})
+        errs = {k: float((out[DEVICE][k].cpu() - v).abs().max())
+                / max(1.0, float(v.abs().max()))
+                for k, v in out["cpu"].items()}
+        worst = max(worst, max(errs.values()))
+        print(f"[last-card-vs-cpu] {name} forward, 8 slices, float32: "
+              f"max|d| / max(1, max|output|) "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        check(max(errs.values()) <= TOL, f"{name} forward differs: {errs}")
+    pool = np.asarray(healthy.slices("TRAIN"), np.float32)
+    idxs = epoch_indices(np.random.default_rng((SEED + 1, 0)), len(pool),
+                         2)[:3]
+    rel = {}
+    for name, phase in (("constrainedAAE_Chen", 6), ("fAnoGAN", 0),
+                        ("fAnoGAN", 1), ("fAnoGAN_schlegl", 0),
+                        ("AnoVAEGAN", 0)):
+        rel[f"{name} {phase}"] = gan_batch_card_vs_cpu(name, phase, pool,
+                                                       idxs)
+    return worst, max(rel.values())
+
+
+def step_flops(trainer, pool):
+    """The FLOPs of one training step on the first batch of ``pool``: each
+    operator that ``torch.utils.flop_counter`` has a formula for (matrix
+    products and convolutions, forward and backward, the penalties' double
+    backwards included), counted by a dispatch mode.  ``FlopCounterMode``
+    itself cannot count a step: its module hooks refuse the penalty's
+    ``autograd.grad`` on a leaf."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import flop_registry
+
+    class Counter(TorchDispatchMode):
+        total = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.total += formula(*args, **kwargs, out_val=out)
+            return out
+
+    batch = {"x": pool["x"][:trainer.config.batchsize]}
+    with Counter() as counter:
+        trainer.train_step(batch)
+    return counter.total
+
+
+def phase_last_timings(cudnn_tf32, matmul_tf32, chen_wd):
+    """h. Warm train slices/s at batch 8 of each of GAN_TIMINGS (fAnoGAN in
+    each phase) with each step's FLOPs and the rate they make; the warm
+    ``constrainedAAE_Chen`` ``evaluate()`` split; profiles queued."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import Config
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    _, options, healthy, cohort = lesion_cohort("constrainedAAE_Chen")
+    pool = device_pool(healthy)
+    sps, rates = {}, {}
+    for label, name, phase, steps, profiled in GAN_TIMINGS:
+        c = preset(name)
+        t = get_trainer(c.trainer)(c, device=DEVICE)
+        t.init_state()
+        t.epoch = c.numEpochs * phase if c.trainer == "fAnoGAN" else phase
+        flops = step_flops(t, pool)
+        sps[label] = warm_train(t, pool, c.seed, label, steps, profiled)
+        rates[label] = flops * sps[label] / c.batchsize / 1e12
+        print(f"[timing] {label}: {flops / 1e12:.3f} TFLOP per step of batch "
+              f"{c.batchsize} -> {rates[label]:.1f} TFLOP/s, "
+              f"{100 * rates[label] / H100_BF16_TFLOPS:.1f} % of the dense "
+              f"bf16 peak {H100_BF16_TFLOPS:.0f} TFLOP/s")
+    with open(os.path.join(chen_wd, "config.json")) as f:
+        chen_config = Config.from_json(f.read())
+    options = timing_options(options)
+    t = get_trainer(chen_config.trainer)(chen_config, options,
+                                         workdir=chen_wd, device=DEVICE)
+    check(t.load_checkpoint() is not None, "constrainedAAE_Chen checkpoint")
+    total, split = warm_evaluate(cohort, t, options, chen_config,
+                                 "constrainedAAE_Chen")
+    return sps, rates, total, split
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -1854,6 +2237,14 @@ def main():
             "9d families card vs cpu", phase_families_card_vs_cpu)
         fam_sps, gm_eval_ms, gm_split = timed_phase(
             "9e families timings", phase_families_timings, *tf32, spatial_wd)
+        last_launches, last_wds = timed_phase(
+            "9f ResNet + image critics", phase_last_presets, tmp, scans[0])
+        launches += last_launches
+        last_fwd, last_rel = timed_phase(
+            "9g ResNet + image critics card vs cpu", phase_last_card_vs_cpu)
+        last_sps, last_rates, chen_eval_ms, chen_split = timed_phase(
+            "9h ResNet + image critics timings", phase_last_timings, *tf32,
+            last_wds["constrainedAAE_Chen"])
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1888,6 +2279,17 @@ def main():
           f"card vs CPU: forwards max|d| {fam_fwd:.3e}, AAE batch losses "
           f"max relative diff {aae_rel:.3e}, GMVAE 3-step restoration max|d| "
           f"{gm_restore:.3e}")
+    print(f"[summary] ResNet and image-critic presets: warm train "
+          + ", ".join(f"{k} {v:.1f} slices/s ({last_rates[k]:.1f} TFLOP/s, "
+                      f"device busy {100 * busy[k + ' train']:.1f} %)"
+                      for k, v in last_sps.items())
+          + f"; warm constrainedAAE_Chen evaluate() {chen_eval_ms:.1f} ms for "
+          f"the TEST cohort (" + ", ".join(f"{p} {v:.1f} ms"
+                                           for p, v in chen_split.items())
+          + f"; device busy {100 * busy['constrainedAAE_Chen evaluate']:.1f} "
+          f"%); card vs CPU: forwards max|d| {last_fwd:.3e}, adversarial "
+          f"batch losses max relative diff {last_rel:.3e}; median launches "
+          f"{launches} in all")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

@@ -176,7 +176,7 @@ def test_model_matches_flax(name, train):
     tm, tspec = get_model(cfg)
     assert (tspec.reconstruction_key, tspec.rngs, tspec.takes_prior_z) == (
         spec.reconstruction_key, spec.rngs, spec.takes_prior_z)
-    tm.load_state_dict(params_from_flax(variables["params"], stats))
+    tm.load_state_dict(params_from_flax(variables["params"], stats, tm))
     tm.train(train)
     with torch.no_grad():
         if z is None:
@@ -190,7 +190,7 @@ def test_model_matches_flax(name, train):
                                    err_msg=k, **TOL)
     if train:
         want = params_from_flax(variables["params"],
-                                jax.device_get(mutated["batch_stats"]))
+                                jax.device_get(mutated["batch_stats"]), tm)
         state = tm.state_dict()
         keys = [k for k in want if k.endswith(("running_mean",
                                                "running_var"))]
@@ -226,7 +226,8 @@ def test_mlp_discriminator_matches_flax(hidden):
     ref = jd.apply({"params": params}, z)
     holder = torch.nn.Module()
     holder.add_module("discriminator", layers.MLPDiscriminator(Z, hidden))
-    holder.load_state_dict(params_from_flax({"discriminator": params}, {}))
+    holder.load_state_dict(params_from_flax({"discriminator": params}, {},
+                                             holder))
     got = holder.discriminator(_t(z))
     assert got.shape == (5, 1) and got.dtype == torch.float32
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
@@ -264,7 +265,7 @@ def aae_pair(monkeypatch):
 
 def _load(tt, js):
     tt.model.load_state_dict(params_from_flax(
-        jax.device_get(js.params), jax.device_get(js.batch_stats)))
+        jax.device_get(js.params), jax.device_get(js.batch_stats), tt.model))
     opt_states = jax.device_get(js.opt_states)
     if isinstance(tt.optimizer, gan.OptimizerGroup):
         for g in ("ae", "disc", "gen"):
@@ -322,7 +323,7 @@ def test_batch_step_matches_jax(aae_pair, name):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]),
                                    rtol=LOSS_RTOL, atol=1e-5, err_msg=k)
     want = params_from_flax(jax.device_get(js.params),
-                            jax.device_get(js.batch_stats))
+                            jax.device_get(js.batch_stats), tt.model)
     got = tt.model.state_dict()
     # an encoder element takes two AE steps and a generator step
     assert_step_matches(want, got, start, cfg, (5, 6, 3))
@@ -356,7 +357,7 @@ def test_constrained_ae_step_matches_jax(aae_pair):
                                        rtol=LOSS_RTOL, atol=1e-5, err_msg=k)
         assert_step_matches(
             params_from_flax(jax.device_get(js.params),
-                             jax.device_get(js.batch_stats)),
+                             jax.device_get(js.batch_stats), tt.model),
             tt.model.state_dict(), start, cfg, (b + 1,))
 
 
@@ -382,7 +383,7 @@ def test_gradient_penalty_gradient_matches_jax_grad(aae_pair):
             n] for n in names])
     np.testing.assert_allclose(float(loss), float(ref_loss), rtol=LOSS_RTOL)
     want = params_from_flax({"discriminator": jax.device_get(
-        ref_grads["discriminator"])}, {})
+        ref_grads["discriminator"])}, {}, tt.model)
     assert sorted(want) == sorted(names)
     for n, g in zip(names, grads):
         np.testing.assert_allclose(g.numpy(), want[n].numpy(), err_msg=n,
@@ -522,7 +523,7 @@ def test_evaluate_matches_jax(tmp_path):
     js = js.replace(batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
     tt = get_trainer(cfg.trainer)(cfg, device="cpu")
     tt.model.load_state_dict(params_from_flax(jax.device_get(js.params),
-                                              stats))
+                                              stats, tt.model))
     ds = jax_synthetic.SYNTH(jax_synthetic.SyntheticOptions(
         numPatients=4, imageSize=64, numSlices=12, targetSize=64,
         withLesions=True, seed=99,

@@ -102,7 +102,7 @@ def pair():
                                                        stats))
     tt = get_trainer("AE")(cfg, device="cpu")
     tt.model.load_state_dict(params_from_flax(jax.device_get(js.params),
-                                              stats))
+                                              stats, tt.model))
     ds = SYNTH(SyntheticOptions(
         numPatients=4, imageSize=64, numSlices=24, targetSize=64,
         withLesions=True, seed=99,
@@ -300,7 +300,7 @@ def vae_pairs():
             jax.numpy.asarray, stats))
         tt = get_trainer("VAE")(cfg, device="cpu")
         tt.model.load_state_dict(params_from_flax(
-            jax.device_get(js.params), stats))
+            jax.device_get(js.params), stats, tt.model))
         out[rate] = (cfg, jt, js, tt)
     return out
 

@@ -216,7 +216,7 @@ def test_model_matches_flax(kind, size, train, monkeypatch):
     tm, tspec = get_model(cfg)
     assert (tspec.reconstruction_key, tspec.rngs, tspec.takes_prior_z) == (
         spec.reconstruction_key, spec.rngs, spec.takes_prior_z)
-    tm.load_state_dict(params_from_flax(variables["params"], stats))
+    tm.load_state_dict(params_from_flax(variables["params"], stats, tm))
     tm.train(train)
     with torch.no_grad():
         got = tm(_t(x), sample={k: _t(v) for k, v in _tiled(base, 3).items()})
@@ -231,7 +231,7 @@ def test_model_matches_flax(kind, size, train, monkeypatch):
                                    err_msg=k, atol=1e-5 * scale, rtol=1e-5)
     if train and stats:
         want = params_from_flax(variables["params"],
-                                jax.device_get(mutated["batch_stats"]))
+                                jax.device_get(mutated["batch_stats"]), tm)
         state = tm.state_dict()
         keys = [k for k in want if k.endswith(("running_mean",
                                                "running_var"))]
@@ -285,7 +285,7 @@ def test_stride1_conv_transpose_matches_flax(h, w):
     holder.add_module("dec_convT_1", layers.ConvTranspose2d(3, 5, 3,
                                                             stride=1))
     holder.load_state_dict(params_from_flax(
-        {"dec_convT_1": {"kernel": kernel, "bias": bias}}, {}))
+        {"dec_convT_1": {"kernel": kernel, "bias": bias}}, {}, holder))
     with torch.no_grad():
         out = holder.dec_convT_1(_t(x).permute(0, 3, 1, 2))
     assert out.shape[-2:] == (h, w)
@@ -344,11 +344,12 @@ def test_init_state_and_converter_carry_the_bare_bias():
         jm, _ = jax_get_model(_jax(cfg), jnp.float32)
         params = _flax_variables(jm, np.zeros((2, 32, 32, 1), np.float32))[
             "params"]
-        sd = params_from_flax(params, {})
+        sd = params_from_flax(params, {}, t.model)
         np.testing.assert_array_equal(sd[key].numpy(), np.full(
             DIMS["dim_z"] * DIMS["dim_c"], 0.1, np.float32))
     with pytest.raises(ValueError, match="unmapped"):
-        params_from_flax({"layer": {"other_bias": np.zeros(2)}}, {})
+        params_from_flax({"layer": {"other_bias": np.zeros(2)}}, {},
+                         t.model)
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +372,7 @@ def gmvae_pair():
                                                            stats))
         tt = get_trainer(cfg.trainer)(cfg, device="cpu")
         tt.model.load_state_dict(params_from_flax(
-            jax.device_get(js.params), stats))
+            jax.device_get(js.params), stats, tt.model))
         out[kind] = (cfg, jt, js, tt)
     return out
 
@@ -565,7 +566,8 @@ def test_train_step_matches_jax(kind, monkeypatch):
     for b in range(2):
         batch = pool[4 * b: 4 * b + 4]
         tt.model.load_state_dict(params_from_flax(
-            jax.device_get(js.params), jax.device_get(js.batch_stats)))
+            jax.device_get(js.params), jax.device_get(js.batch_stats),
+            tt.model))
         tt.optimizer.load_state_dict(adam_state_from_optax(
             jax.device_get(js.opt_states["main"]), tt.model, tt.optimizer))
         start = {k: v.clone() for k, v in tt.model.state_dict().items()}
@@ -583,7 +585,7 @@ def test_train_step_matches_jax(kind, monkeypatch):
                                        err_msg=f"VAL {k} step {b}")
         assert_step_matches(
             params_from_flax(jax.device_get(js.params),
-                             jax.device_get(js.batch_stats)),
+                             jax.device_get(js.batch_stats), tt.model),
             tt.model.state_dict(), start, cfg, (b + 1,))
 
 
@@ -605,7 +607,7 @@ def test_evaluate_matches_jax(monkeypatch, tmp_path):
     js = js.replace(batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
     tt = get_trainer(cfg.trainer)(cfg, device="cpu")
     tt.model.load_state_dict(params_from_flax(jax.device_get(js.params),
-                                              stats))
+                                              stats, tt.model))
     _patch_noise(monkeypatch, _slice_noise("spatial", 64, 15))
     ds = jax_synthetic.SYNTH(jax_synthetic.SyntheticOptions(
         numPatients=4, imageSize=64, numSlices=12, targetSize=64,

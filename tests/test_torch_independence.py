@@ -51,6 +51,15 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_sources_cover_the_whole_model_zoo():
+    """The scan reaches every network module of the port, the ResNet stack
+    and the image critics included."""
+    models = {os.path.basename(p) for p in _sources()
+              if os.path.dirname(p) == os.path.join(PORT, "models")}
+    assert {"ae.py", "vae.py", "cevae.py", "gmvae.py", "aae.py", "resnet.py",
+            "chen.py", "fanogan.py", "anovaegan.py"} <= models
+
+
 _BLOCKER = """
 import sys
 

@@ -22,8 +22,14 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import layers
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
     params_from_flax,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu.models.registry import (
+    MODEL_REGISTRY as JAX_MODEL_REGISTRY,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu.train.registry import (
+    TRAINER_REGISTRY as JAX_TRAINER_REGISTRY,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import registry
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.registry import (
-    NOT_YET_PORTED,
     get_model,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
@@ -70,7 +76,7 @@ def test_autoencoder_matches_flax_eval(jax_ae):
     ref = trainer.model.apply({"params": params, "batch_stats": stats}, x,
                               train=False)
     model, spec = get_model(_config(size))
-    model.load_state_dict(params_from_flax(params, stats))
+    model.load_state_dict(params_from_flax(params, stats, model))
     model.eval()
     with torch.no_grad():
         out = model(torch.from_numpy(x))
@@ -115,7 +121,7 @@ def test_single_conv_transpose_matches_flax(size):
     assert variables["params"]["kernel"].shape == kernel.shape
     port = _Holder("dec_convT_0", layers.ConvTranspose2d(3, 4))
     port.load_state_dict(params_from_flax(
-        {"dec_convT_0": {"kernel": kernel, "bias": bias}}, {}))
+        {"dec_convT_0": {"kernel": kernel, "bias": bias}}, {}, port))
     with torch.no_grad():
         out = port.dec_convT_0(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(),
@@ -132,7 +138,7 @@ def test_same_conv_matches_flax(size, stride):
         {"params": {"kernel": kernel, "bias": bias}}, x)
     port = _Holder("enc_conv_0", layers.Conv2d(3, 4, 5, stride))
     port.load_state_dict(params_from_flax(
-        {"enc_conv_0": {"kernel": kernel, "bias": bias}}, {}))
+        {"enc_conv_0": {"kernel": kernel, "bias": bias}}, {}, port))
     with torch.no_grad():
         out = port.enc_conv_0(torch.from_numpy(x).permute(0, 3, 1, 2))
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(),
@@ -179,17 +185,39 @@ def test_non_parity_options_raise(field):
         get_model(_config(32).replace(**{field: True}))
 
 
-@pytest.mark.parametrize("name", NOT_YET_PORTED[:3])
-def test_unported_models_raise(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model(_config(32).replace(model=name))
+@pytest.mark.parametrize("name", ["constrained_adversarial_autoencoder_Chen",
+                                  "fanogan", "fanogan_schlegl", "anovaegan"])
+def test_last_four_models_build_and_run(name):
+    """The four networks that were ported last build through the registry
+    with the JAX metadata and run a forward at 32x32."""
+    cfg = _config(32).replace(model=name, intermediateResolutions=(4, 4))
+    model, spec = get_model(cfg)
+    jspec = JAX_MODEL_REGISTRY[name]
+    assert (spec.reconstruction_key, spec.takes_prior_z, spec.rngs) == (
+        jspec.reconstruction_key, jspec.takes_prior_z, jspec.rngs)
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(2, 32, 32, 1)
+    args = (x, torch.randn(2, 16)) if spec.takes_prior_z else (x,)
+    model.eval()
+    with torch.no_grad():
+        out = model(*args, sample=g, gp=g)
+    rec = out[spec.reconstruction_key]
+    assert rec.shape == x.shape and torch.isfinite(rec).all()
 
 
-def test_unported_trainers_raise():
-    assert trainer_registry.get_trainer("AE").__name__ == "AE"
-    for name in ("fAnoGAN", "AnoVAEGAN"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            trainer_registry.get_trainer(name)
+def test_every_jax_network_and_trainer_is_registered():
+    """All 16 networks and 12 trainers of the JAX registries, and nothing
+    marked as not yet ported."""
+    assert sorted(registry.MODEL_REGISTRY) == sorted(JAX_MODEL_REGISTRY)
+    assert len(registry.MODEL_REGISTRY) == 16
+    assert sorted(trainer_registry.TRAINER_REGISTRY) == sorted(
+        JAX_TRAINER_REGISTRY)
+    assert len(trainer_registry.TRAINER_REGISTRY) == 12
+    for name in JAX_TRAINER_REGISTRY:
+        assert trainer_registry.get_trainer(name).__name__ == (
+            JAX_TRAINER_REGISTRY[name].__name__)
+    assert not hasattr(registry, "NOT_YET_PORTED")
+    assert not hasattr(trainer_registry, "NOT_YET_PORTED")
 
 
 def test_init_state_is_seeded_glorot():

@@ -46,6 +46,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
     params_from_flax,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.registry import (
+    get_model,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
     CHECKPOINT,
 )
@@ -103,7 +106,8 @@ def converted():
         jax.numpy.asarray, stats))
     wd = tempfile.mkdtemp()
     os.makedirs(os.path.join(wd, "torch"))
-    torch.save(params_from_flax(jax.device_get(state.params), stats),
+    model, _ = get_model(PortConfig.from_json(cfg.to_json()))
+    torch.save(params_from_flax(jax.device_get(state.params), stats, model),
                os.path.join(wd, CHECKPOINT))
     with open(os.path.join(wd, "config.json"), "w") as f:
         f.write(cfg.to_json())
@@ -230,7 +234,7 @@ def test_tool_converts_vae_family_workdirs(trainer, model, tmp_path):
     assert port.load_checkpoint() is not None
     assert port.tv_lambda_value == 0.3
     want = params_from_flax(jax.device_get(js.params),
-                            jax.device_get(js.batch_stats))
+                            jax.device_get(js.batch_stats), port.model)
     got = port.model.state_dict()
     assert set(got) == set(want)
     assert all(torch.equal(got[k], want[k]) for k in want)
@@ -276,10 +280,6 @@ def test_infer_cli_matches_jax_cli(jax_workdir, tmp_path):
 def test_cli_training_subcommands_are_not_yet_ported(capsys):
     assert cli.main(["validate-data"]) == 2
     assert "not yet ported" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--synthetic", "-t", "fAnoGAN", "-m", "fanogan", "-w", "32",
-                  "-g", "32",
-                  "-s", "0", "-e", "8", "--device", "cpu"])
 
 
 def test_cli_cuda_without_a_card_raises(converted, tmp_path):

@@ -236,11 +236,11 @@ def test_autoencoder_train_mode_call_matches_flax():
     ref, mutated = jt.model.apply(
         {"params": js.params, "batch_stats": js.batch_stats}, x, train=True,
         dropout=False, mutable=["batch_stats"])
-    want = params_from_flax(jax.device_get(js.params),
-                            jax.device_get(mutated["batch_stats"]))
     tt = get_trainer("AE")(cfg, device="cpu")
+    want = params_from_flax(jax.device_get(js.params),
+                            jax.device_get(mutated["batch_stats"]), tt.model)
     tt.model.load_state_dict(params_from_flax(
-        jax.device_get(js.params), jax.device_get(js.batch_stats)))
+        jax.device_get(js.params), jax.device_get(js.batch_stats), tt.model))
     tt.model.train()
     out = tt.model(_t(x))
     np.testing.assert_allclose(out["x_hat"].detach().numpy(),
@@ -288,9 +288,9 @@ def _bn_fed_biases(state_dict):
         or "intermediate_conv_reverse" in k)}
 
 
-def _convert(jstate):
+def _convert(jstate, model):
     return params_from_flax(jax.device_get(jstate.params),
-                            jax.device_get(jstate.batch_stats))
+                            jax.device_get(jstate.batch_stats), model)
 
 
 def _setup(start_steps):
@@ -315,7 +315,7 @@ def _setup(start_steps):
 
 
 def _load_jax_state(tt, jstate):
-    tt.model.load_state_dict(_convert(jstate))
+    tt.model.load_state_dict(_convert(jstate, tt.model))
     tt.optimizer.load_state_dict(adam_state_from_optax(
         jax.device_get(jstate.opt_states["main"]), tt.model, tt.optimizer))
 
@@ -379,7 +379,7 @@ def test_ae_trajectory_steps_match_jax(start_steps):
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=TRAJ_LOSS_RTOL, err_msg=f"step {b}")
         assert int(tt.optimizer.state_dict()["state"][0]["step"]) == b + 1
-        want, got = _convert(jstate), tt.model.state_dict()
+        want, got = _convert(jstate, tt.model), tt.model.state_dict()
         fed = _bn_fed_biases(got)
         assert len(fed) == 5
         # + float32 rounding of the updated parameters

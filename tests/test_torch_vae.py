@@ -181,7 +181,7 @@ def test_model_matches_flax(preset, train):
     assert (tspec.reconstruction_key, tspec.takes_context) == (
         spec.reconstruction_key, spec.takes_context)
     assert tspec.rngs == spec.rngs
-    tm.load_state_dict(params_from_flax(variables["params"], stats))
+    tm.load_state_dict(params_from_flax(variables["params"], stats, tm))
     tm.train(train)
     with torch.no_grad():
         got = tm(*[_t(a) for a in args], sample=_t(noise))
@@ -192,7 +192,7 @@ def test_model_matches_flax(preset, train):
                                    err_msg=k, **TOL)
     if train and stats:
         want = params_from_flax(variables["params"],
-                                jax.device_get(mutated["batch_stats"]))
+                                jax.device_get(mutated["batch_stats"]), tm)
         state = tm.state_dict()
         keys = [k for k in want if k.endswith(("running_mean",
                                                "running_var"))]
@@ -229,7 +229,7 @@ def test_single_conv_transpose_4x4_matches_flax(size):
     holder = torch.nn.Module()
     holder.add_module("dec_convT_1", layers.ConvTranspose2d(3, 5, 4))
     holder.load_state_dict(params_from_flax(
-        {"dec_convT_1": {"kernel": kernel, "bias": bias}}, {}))
+        {"dec_convT_1": {"kernel": kernel, "bias": bias}}, {}, holder))
     with torch.no_grad():
         out = holder.dec_convT_1(_t(x).permute(0, 3, 1, 2))
     assert out.shape[-2:] == (2 * size, 2 * (size + 1))
@@ -366,7 +366,7 @@ def vae_pair():
                                                            stats))
         tt = get_trainer(trainer)(cfg, device="cpu")
         tt.model.load_state_dict(params_from_flax(
-            jax.device_get(js.params), stats))
+            jax.device_get(js.params), stats, tt.model))
         out[trainer] = (cfg, jt, js, tt)
     return out
 
@@ -537,7 +537,7 @@ def _pool(b, size=64, seed=11):
 
 def _load_jax_state(tt, js):
     tt.model.load_state_dict(params_from_flax(
-        jax.device_get(js.params), jax.device_get(js.batch_stats)))
+        jax.device_get(js.params), jax.device_get(js.batch_stats), tt.model))
     tt.optimizer.load_state_dict(adam_state_from_optax(
         jax.device_get(js.opt_states["main"]), tt.model, tt.optimizer))
 
@@ -579,7 +579,7 @@ def test_train_steps_match_jax(trainer, model, monkeypatch):
         jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
         tbatch = {k: _t(v) for k, v in batch.items()}
         _load_jax_state(tt, js)
-        start = params_from_flax(jax.device_get(js.params), {})
+        start = params_from_flax(jax.device_get(js.params), {}, tt.model)
         _, jv = jval(js, jbatch)
         js, jm = jstep(js, jbatch)
         tv = tt.val_step(tbatch)
@@ -591,7 +591,7 @@ def test_train_steps_match_jax(trainer, model, monkeypatch):
                                        err_msg=f"{k} step {b}")
             np.testing.assert_allclose(float(tv[k]), float(jv[k]), **tol,
                                        err_msg=f"VAL {k} step {b}")
-        want = params_from_flax(jax.device_get(js.params), {})
+        want = params_from_flax(jax.device_get(js.params), {}, tt.model)
         got = dict(tt.model.named_parameters())
         d_jax = torch.cat([(want[k] - start[k]).flatten() for k in want])
         d_err = torch.cat([(got[k].detach() - want[k]).flatten()

@@ -35,8 +35,14 @@ def convert(workdir: str) -> str:
 
     from unsupervised_anomaly_detection_brain_mri_tpu.config import Config
     from unsupervised_anomaly_detection_brain_mri_tpu.train import get_trainer
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+        Config as PortConfig,
+    )
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
         params_from_flax,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.registry import (
+        get_model,
     )
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
         CHECKPOINT,
@@ -49,8 +55,9 @@ def convert(workdir: str) -> str:
     if restored is None:
         raise FileNotFoundError(f"no JAX checkpoint under {workdir}")
     state, _ = restored
+    model, _ = get_model(PortConfig.from_json(config.to_json()))
     state_dict = params_from_flax(jax.device_get(state.params),
-                                  jax.device_get(state.batch_stats))
+                                  jax.device_get(state.batch_stats), model)
     path = os.path.join(workdir, CHECKPOINT)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.save(state_dict, path)

@@ -1,24 +1,27 @@
 """Flax parameter trees and optax states -> the port's ``state_dict``s.
 
 Takes the JAX package's nested trees of arrays (``TrainState.params`` and
-``TrainState.batch_stats``, as numpy) and returns a ``state_dict`` for the
-module of the same name in this package.  Mappings:
+``TrainState.batch_stats``, as numpy) and the torch module they are for,
+and returns a ``state_dict`` for that module (its submodules carry the
+Flax names).  Each leaf's layout follows the type of the torch module at
+its path:
 
-  * Conv kernel HWIO -> weight OIHW;
-  * Dense kernel (in, out) -> weight (out, in);
-  * ConvTranspose kernel (kh, kw, in, out) -> ``ConvTranspose2d`` weight
-    (in, out, kh, kw), flipped on both spatial axes (``lax.conv_transpose``
+  * ``nn.Conv2d``: kernel HWIO -> weight OIHW;
+  * ``nn.ConvTranspose2d``: kernel (kh, kw, in, out) -> weight (in, out,
+    kh, kw), flipped on both spatial axes (``lax.conv_transpose``
     correlates the dilated input with the kernel as stored; torch's
     transposed convolution is the adjoint of a correlation);
-  * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var
-    (the Flax ``BatchNorm_0`` level is dropped), with
-    ``num_batches_tracked`` set to 0;
+  * ``nn.Linear``: kernel (in, out) -> weight (out, in);
+  * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var,
+    with ``num_batches_tracked`` set to 0, and LayerNorm scale/bias ->
+    weight/bias (the Flax ``BatchNorm_0`` or ``LayerNorm_0`` level of the
+    JAX package's ``Norm`` is dropped);
   * a bare parameter of a module (``self.param``, such as the GMVAEs'
     ``z_wc_log_sigma_inv_bias``) -> the torch parameter of the same path.
 
-Transposed-convolution modules are recognised by ``convT`` in their name,
-as every one in the JAX zoo is named (the stride-1 ones of ``GMVAEYou``
-too).
+The module's type, not its name, decides: the ResNets' transposed
+convolutions are named ``conv2`` and ``shortcut``, and a 3x3 f -> f kernel
+has the same shape in either layout.
 
 ``adam_state_from_optax`` carries an ``optax.adam`` state across the same
 way (moments with the parameters' layout transforms), so a JAX run taken
@@ -34,10 +37,16 @@ from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
+    SpatialLayerNorm,
+)
 
 # bare Flax parameters (not kernel, scale or bias of a layer)
 BARE_PARAMETERS = ("z_wc_log_sigma_inv_bias",)
+# modules whose Flax ``scale`` is the torch ``weight``
+NORMS = (nn.BatchNorm2d, SpatialLayerNorm)
 
 
 def _masked(leaf: Any) -> bool:
@@ -60,47 +69,59 @@ def _tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
-def _module_path(path: Tuple[str, ...]) -> Tuple[Tuple[str, ...], bool]:
-    """(torch module path, is_batchnorm) for a Flax leaf path."""
+def _module_prefix(path: Tuple[str, ...]) -> str:
+    """The torch module path of a Flax leaf path: the leaf's name and a
+    norm's auto-named ``BatchNorm_0``/``LayerNorm_0`` level dropped."""
     mods = path[:-1]
-    is_bn = bool(mods) and mods[-1].startswith("BatchNorm")
-    return (mods[:-1] if is_bn else mods), is_bn
+    if mods and mods[-1].startswith(("BatchNorm", "LayerNorm")):
+        mods = mods[:-1]
+    return ".".join(mods)
 
 
-def params_from_flax(params: Mapping, batch_stats: Mapping
-                     ) -> Dict[str, torch.Tensor]:
-    """Convert Flax ``params`` + ``batch_stats`` trees to a state_dict."""
+def _kernel(a: np.ndarray, module: nn.Module, path: Tuple[str, ...]
+            ) -> np.ndarray:
+    """A Flax kernel in the layout of the torch ``module`` it is for."""
+    if isinstance(module, nn.ConvTranspose2d) and a.ndim == 4:
+        return a[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(module, nn.Conv2d) and a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)
+    if isinstance(module, nn.Linear) and a.ndim == 2:
+        return a.T
+    raise ValueError(f"kernel {'/'.join(path)} of shape {a.shape} for a "
+                     f"{type(module).__name__}")
+
+
+def params_from_flax(params: Mapping, batch_stats: Mapping,
+                     model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert Flax ``params`` + ``batch_stats`` trees to a state_dict for
+    ``model``."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params):
-        mods, is_bn = _module_path(path)
-        prefix = ".".join(mods)
+        prefix = _module_prefix(path)
         a = np.asarray(leaf, np.float32)
         name = path[-1]
+        if name in BARE_PARAMETERS:
+            sd[".".join(path)] = _tensor(a)
+            continue
+        try:
+            module = model.get_submodule(prefix)
+        except AttributeError:
+            raise ValueError(f"unmapped Flax parameter {'/'.join(path)}: "
+                             f"no module {prefix!r}") from None
         if name == "kernel":
-            if a.ndim == 4 and "convT" in mods[-1]:
-                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
-            elif a.ndim == 4:
-                a = a.transpose(3, 2, 0, 1)
-            elif a.ndim == 2:
-                a = a.T
-            else:
-                raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
-            key = "weight"
-        elif name == "scale" and is_bn:
+            a, key = _kernel(a, module, path), "weight"
+        elif name == "scale" and isinstance(module, NORMS):
             key = "weight"
         elif name == "bias":
             key = "bias"
-        elif name in BARE_PARAMETERS and not is_bn:
-            sd[".".join(path)] = _tensor(a)
-            continue
         else:
             raise ValueError(f"unmapped Flax parameter {'/'.join(path)}")
         sd[f"{prefix}.{key}"] = _tensor(a)
     for path, leaf in _flatten(batch_stats):
-        mods, is_bn = _module_path(path)
-        if not is_bn or path[-1] not in ("mean", "var"):
+        prefix = _module_prefix(path)
+        if path[-1] not in ("mean", "var") or not isinstance(
+                model.get_submodule(prefix), nn.BatchNorm2d):
             raise ValueError(f"unmapped Flax batch stat {'/'.join(path)}")
-        prefix = ".".join(mods)
         key = "running_mean" if path[-1] == "mean" else "running_var"
         sd[f"{prefix}.{key}"] = _tensor(leaf)
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
@@ -135,8 +156,8 @@ def adam_state_from_optax(opt_state: Any, model: torch.nn.Module,
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no optax Adam state (count, mu, nu) found")
-    mu = params_from_flax(adam.mu, {})
-    nu = params_from_flax(adam.nu, {})
+    mu = params_from_flax(adam.mu, {}, model)
+    nu = params_from_flax(adam.nu, {}, model)
     by_id = {id(p): n for n, p in model.named_parameters()}
     names = [by_id[id(p)] for group in optimizer.param_groups
              for p in group["params"]]

@@ -10,18 +10,20 @@ maps a Flax checkpoint one entry at a time.
 Numerics that must match Flax:
   * SAME convolutions pad like TensorFlow: for k=5, s=2 on an even size
     that is (1, 2), which ``padding="same"`` cannot express under stride 2;
-  * SAME transposed convolutions (stride 2) are ``conv_transpose2d(
-    padding=1)`` with the kernel flipped (done by the converter): for k=5
-    Flax pads the dilated input by (3, 2), so the last row and column are
-    cropped; for k=4 it pads (2, 2) and nothing is cropped;
+  * SAME transposed convolutions are ``conv_transpose2d`` with the kernel
+    flipped (done by the converter) and the dilated input padded as lax's
+    SAME rule pads it (``convt_same_pads``): (3, 2) for k5 s2, (2, 2) for
+    k4 s2, (2, 1) for k3 s2, (0, 1) for k1 s2 and (1, 1) for k3 s1;
   * BatchNorm eps is 1e-3; Flax's momentum 0.99 is torch's 0.01;
   * the dense bottleneck flattens NHWC, as Flax does;
   * parameters are float32, compute runs in the config's compute dtype,
     and the decoder's output is cast to float32.
 
-Also here: the stride-1 3x3 SAME transposed convolution and the nearest
-x2 upsample of ``GMVAEYou``, and the latent critic ``MLPDiscriminator`` of
-the adversarial autoencoders (LeakyReLU 0.2, not the backbone's 0.3).
+Also here: the nearest x2 upsample of ``GMVAEYou``, the latent critic
+``MLPDiscriminator`` of the adversarial autoencoders (LeakyReLU 0.2, not the
+backbone's 0.3), and ``SpatialLayerNorm``, the LayerNorm over (H, W) of the
+ResNets and of the image critics' and generators' unified backbones
+(``use_batchnorm=False``).
 
 Random draws (dropout masks, the VAEs' ``eps ~ N(0, 1)``, the GMVAEs' three
 normals, the critic interpolate's ``eps ~ U[0, 1)``) come from an explicit
@@ -32,8 +34,8 @@ tensor, or for a model that makes several named draws (the GMVAEs' ``w``,
 seam through which tests and the card-vs-CPU checks feed both sides the
 same numbers; the training and evaluation paths always pass generators.
 
-The space-to-depth stem, the depth-to-space head and spatial LayerNorm are
-not ported yet (``models/registry.py`` rejects configs that ask for them).
+The space-to-depth stem and the depth-to-space head are not ported yet
+(``models/registry.py`` rejects configs that ask for them).
 """
 
 from __future__ import annotations
@@ -187,20 +189,39 @@ class Conv2d(nn.Conv2d):
                         self.bias.to(self.compute_dtype), s)
 
 
+# (stride, kernel) of the zoo's transposed convolutions, each pinned against
+# Flax by a test
+CONVT_SHAPES = ((2, 5), (2, 4), (2, 3), (2, 1), (1, 3))
+
+
+def convt_same_pads(kernel: int, stride: int) -> Tuple[int, int]:
+    """lax's SAME padding (before, after) of the dilated input of a
+    transposed convolution (``lax._conv_transpose_padding``)."""
+    total = kernel + stride - 2
+    before = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return before, total - before
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """Flax ``nn.ConvTranspose(padding="SAME")``: kernel 5 or 4 at stride 2
-    (output exactly 2x the input), or kernel 3 at stride 1 (``GMVAEYou``;
-    output the input's size).  The weight is torch's (in, out, kh, kw) and
-    holds the Flax kernel flipped on both spatial axes."""
+    """Flax ``nn.ConvTranspose(padding="SAME")``: output ``stride`` x the
+    input.  The weight is torch's (in, out, kh, kw) and holds the Flax
+    kernel flipped on both spatial axes.
+
+    torch's ``padding`` p pads the dilated input by k - 1 - p on both
+    sides and ``output_padding`` adds rows after; so p is set from lax's
+    pad before, and lax's pad after is reached by ``output_padding`` (k1
+    s2) or by cropping the last rows and columns (k5 s2, k3 s2)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 5, dtype: torch.dtype = torch.float32,
                  stride: int = 2):
-        if (stride, kernel_size) not in ((2, 4), (2, 5), (1, 3)):
+        if (stride, kernel_size) not in CONVT_SHAPES:
             raise ValueError(f"SAME ConvTranspose of kernel {kernel_size} "
                              f"at stride {stride}")
+        before, after = convt_same_pads(kernel_size, stride)
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, padding=1)
+                         stride=stride, padding=kernel_size - 1 - before)
+        self.extra = max(after - before, 0)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -208,10 +229,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         s = self.stride[0]
         y = F.conv_transpose2d(
             x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-            self.bias.to(self.compute_dtype), stride=s, padding=1)
-        # k=5: padding=1 pads the dilated input by (3, 3), Flax by (3, 2);
-        # k=4: both pad (2, 2) and the crop keeps everything; k=3 at stride
-        # 1: both pad (1, 1), a plain SAME correlation with the Flax kernel
+            self.bias.to(self.compute_dtype), stride=s,
+            padding=self.padding, output_padding=self.extra)
         return y[..., : s * H, : s * W]
 
 
@@ -263,20 +282,63 @@ class Norm(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+class SpatialLayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm(reduction_axes=(-3, -2), feature_axes=-1,
+    epsilon=1e-3)`` on NCHW: normalises each (sample, channel) over (H, W),
+    with per-channel ``weight`` and ``bias`` (Flax's ``scale`` and
+    ``bias``), statistics in float32, and returns the input's dtype.
+
+    The variance is Flax's default ``use_fast_variance=True`` formula,
+    var = max(0, E[x^2] - E[x]^2), written out in torch ops (it is not
+    ``nn.LayerNorm``, which normalises over C, H and W, and not
+    ``F.group_norm``, whose CPU kernel sums in another order).  On inputs
+    whose mean is large against their spread the formula cancels: at
+    x = 50 + N(0, 1) over 8 x 8 Flax's own float32 output lies more than
+    1e-5 from the exact one, and a different summation order of the same
+    formula (XLA on the CPU adds the H x W values in sequence; torch does
+    not) lands elsewhere inside that error; where every sum is exact the
+    port equals Flax within 1e-5 (``tests/test_torch_resnet.py``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean((2, 3), keepdim=True)
+        mean2 = torch.square(xf).mean((2, 3), keepdim=True)
+        var = torch.clamp(mean2 - torch.square(mean), min=0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight[:, None, None]
+        return ((xf - mean) * mul + self.bias[:, None, None]).to(x.dtype)
+
+
+def make_norm(channels: int, use_batchnorm: bool = True) -> nn.Module:
+    """The JAX package's ``Norm``: BatchNorm, or with ``use_batchnorm=False``
+    the spatial LayerNorm (the Flax ``LayerNorm_0`` level is dropped)."""
+    return Norm(channels) if use_batchnorm else SpatialLayerNorm(channels)
+
+
 class UnifiedEncoder(nn.Module):
     """Strided-conv pyramid down to ``intermediate_resolution``: per stage
     Conv(k5, s2, SAME, min(128, 32 * 2^i) filters) -> Norm -> LeakyReLU."""
 
     def __init__(self, image_width: int, in_channels: int = 1,
                  intermediate_resolution: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_batchnorm: bool = True):
         super().__init__()
         self.n = num_scale_stages(image_width, intermediate_resolution)
         c = in_channels
         for i in range(self.n):
             filters = int(min(128, 32 * (2 ** i)))
             self.add_module(f"enc_conv_{i}", Conv2d(c, filters, 5, 2, dtype))
-            self.add_module(f"enc_norm_{i}", Norm(filters))
+            self.add_module(f"enc_norm_{i}", make_norm(filters,
+                                                       use_batchnorm))
             c = filters
         self.out_channels = c
 
@@ -340,16 +402,18 @@ class UnifiedDecoder(nn.Module):
 
     def __init__(self, in_channels: int, output_width: int,
                  output_channels: int = 1, intermediate_resolution: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 use_batchnorm: bool = True):
         super().__init__()
         self.n = num_scale_stages(output_width, intermediate_resolution)
-        self.dec_norm_in = Norm(in_channels)
+        self.dec_norm_in = make_norm(in_channels, use_batchnorm)
         c = in_channels
         for i in range(self.n):
             filters = int(max(32, 128 // (2 ** i)))
             self.add_module(f"dec_convT_{i}",
                             ConvTranspose2d(c, filters, dtype=dtype))
-            self.add_module(f"dec_norm_{i}", Norm(filters))
+            self.add_module(f"dec_norm_{i}", make_norm(filters,
+                                                       use_batchnorm))
             c = filters
         self.dec_conv_final = Conv2d(c, output_channels, 1, 1, dtype)
 

@@ -6,12 +6,10 @@ the reconstruction: ``xz_mu`` for the GMVAEs), ``takes_prior_z`` (the
 adversarial models, whose forward takes a prior latent), ``takes_context``
 (a second, context-masked input) and ``rngs`` (the random streams the model
 draws: ``dropout``; ``sample`` for the normals of the VAEs and GMVAEs;
-``gp`` for the critic interpolate's eps).  Ported, in their parity
-architecture: the AEs, the VAEs, the ceVAEs, the three GMVAEs, the
-constrained AE and the two latent-critic adversarial AEs.  Chen's
-constrained AAE, the fAnoGANs and AnoVAEGAN, and the non-parity
-``spaceToDepthStem``/``depthToSpaceHead`` options, raise
-``NotImplementedError`` until their slice lands.
+``gp`` for the critic interpolate's eps).  Every network of the JAX
+registry is ported, in its parity architecture (the ResNets at ``dim``
+64); the non-parity ``spaceToDepthStem``/``depthToSpaceHead`` options raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +24,10 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
     aae,
     ae,
+    anovaegan,
     cevae,
+    chen,
+    fanogan,
     gmvae,
     vae,
 )
@@ -98,24 +99,24 @@ MODEL_REGISTRY: Dict[str, ModelSpec] = {
     "constrained_autoencoder": ModelSpec(_std(aae.ConstrainedAutoencoder)),
     "constrained_adversarial_autoencoder": ModelSpec(
         _std(aae.ConstrainedAAE), takes_prior_z=True, rngs=_GP),
+    "constrained_adversarial_autoencoder_Chen": ModelSpec(
+        _std(chen.ConstrainedAAEChen), takes_prior_z=True, rngs=_GP),
+    "fanogan": ModelSpec(
+        _std(fanogan.FAnoGAN), reconstruction_key="x_enc",
+        takes_prior_z=True, rngs=_GP),
+    "fanogan_schlegl": ModelSpec(
+        _std(fanogan.FAnoGANSchlegl), reconstruction_key="x_enc",
+        takes_prior_z=True, rngs=_GP),
+    "anovaegan": ModelSpec(
+        _std(anovaegan.AnoVAEGAN), reconstruction_key="out",
+        rngs=("dropout", "sample", "gp")),
 }
-
-# the rest of the JAX registry, queued in ROADMAP.md
-NOT_YET_PORTED = (
-    "constrained_adversarial_autoencoder_Chen",
-    "fanogan",
-    "fanogan_schlegl",
-    "anovaegan",
-)
 
 
 def get_model(config: Config, dtype: torch.dtype = torch.float32
               ) -> Tuple[nn.Module, ModelSpec]:
     """Build the module named by ``config.model`` (float32 parameters,
     compute in ``dtype``)."""
-    if config.model in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model {config.model!r} is not yet ported, see ROADMAP.md")
     if config.model not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown model {config.model!r}; known: {sorted(MODEL_REGISTRY)}")

@@ -14,7 +14,9 @@ explicit ``device``; together they are the state (the JAX package's
   * the VAL pass in eval mode (no dropout, running BatchNorm statistics),
     early stopping at ``earlyStoppingPatience``, the history, a checkpoint
     after each VAL pass, and resume that replays the VAL history and
-    recognises an already-triggered stop;
+    recognises an already-triggered stop; the hooks ``validation_enabled``,
+    ``early_stopping_enabled`` and ``phase_tag`` (the TRAIN entries'
+    label, ``TRAIN_WGAN`` and ``TRAIN_Encoder`` for ``fAnoGAN``);
   * the slice pool (with the brain masks of the context-encoder trainers)
     lives on the device; pools above ``Options.streamPoolThresholdMB`` (or
     with ``streamPool``) stay on the host and stream in chunks of
@@ -66,6 +68,7 @@ from torch import nn
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Options
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
     Sample,
+    SpatialLayerNorm,
     VolumeGenerators,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.registry import (
@@ -160,8 +163,8 @@ class BaseTrainer:
 
     def init_state(self, generator: Optional[torch.Generator] = None
                    ) -> nn.Module:
-        """Glorot-uniform weights, zero biases, BatchNorm at scale 1, bias
-        0 and running statistics (0, 1), drawn on the CPU from
+        """Glorot-uniform weights, zero biases, BatchNorm and LayerNorm at
+        scale 1 and bias 0, running statistics (0, 1), drawn on the CPU from
         ``generator`` (default: seeded with ``config.seed``); a module's
         bare parameters (the GMVAEs' 0.1 bias) from its
         ``init_bare_parameters``.  Also starts a fresh optimizer, step
@@ -170,7 +173,7 @@ class BaseTrainer:
             generator = torch.Generator().manual_seed(self.config.seed)
         with torch.no_grad():
             for module in self.model.modules():
-                if isinstance(module, nn.BatchNorm2d):
+                if isinstance(module, (nn.BatchNorm2d, SpatialLayerNorm)):
                     module.reset_parameters()
                 elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d,
                                          nn.Linear)):
@@ -416,14 +419,16 @@ class BaseTrainer:
                     self.options.profileDir, f"epoch_{epoch}.trace.json"))
             dt = time.time() - t0
             sps = idxs.size / max(dt, 1e-9)
-            print(f"Epoch (train): [{epoch:3d}] "
+            tag = self.phase_tag(epoch)
+            print(f"Epoch (train{'' if tag == 'TRAIN' else ' ' + tag}): "
+                  f"[{epoch:3d}] "
                   + " ".join(f"{k}: {v:.6f}" for k, v in sorted(
                       metrics.items()))
                   + f" ({sps:,.0f} slices/s)")
-            self.history.append({"epoch": epoch, "phase": "TRAIN", **metrics})
+            self.history.append({"epoch": epoch, "phase": tag, **metrics})
 
             stop = False
-            if val_pool is not None:
+            if val_pool is not None and self.validation_enabled(epoch):
                 vidx = epoch_indices(host_rng, int(val_pool["x"].shape[0]),
                                      c.batchsize, shuffle=False)
                 if vidx.size:
@@ -434,9 +439,12 @@ class BaseTrainer:
                                      for k, v in sorted(vmetrics.items())))
                     self.history.append(
                         {"epoch": epoch, "phase": "VAL", **vmetrics})
-                    best_cost, last_improvement, stop = early_stopping_update(
-                        vmetrics.get(self.early_stop_metric, float("inf")),
-                        best_cost, last_improvement, c.earlyStoppingPatience)
+                    if self.early_stopping_enabled():
+                        best_cost, last_improvement, stop = \
+                            early_stopping_update(
+                                vmetrics.get(self.early_stop_metric,
+                                             float("inf")), best_cost,
+                                last_improvement, c.earlyStoppingPatience)
 
             # checkpoint after the VAL pass: the saved generator state is
             # the stream the next epoch starts from, so a killed and
@@ -453,6 +461,19 @@ class BaseTrainer:
 
     def num_epochs(self) -> int:
         return self.config.numEpochs
+
+    def early_stopping_enabled(self) -> bool:
+        return True
+
+    def validation_enabled(self, epoch: int) -> bool:
+        """Whether the VAL pass runs after this epoch (``fAnoGAN`` skips
+        it in its WGAN phase)."""
+        return True
+
+    def phase_tag(self, epoch: int) -> str:
+        """The history's and the printed line's label of this epoch's
+        training phase."""
+        return "TRAIN"
 
     def post_fit(self, dataset) -> None:
         """Hook after training (the restoration trainers' lambda sweep)."""

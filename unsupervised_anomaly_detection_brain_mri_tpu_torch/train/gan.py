@@ -1,39 +1,58 @@
-"""Adversarial trainers of the latent-critic family: ``AAE`` and
-``ConstrainedAAE``.
+"""Adversarial trainers: the latent-critic ``AAE`` and ``ConstrainedAAE``
+(also Chen's ResNet model), and the image-critic ``fAnoGAN`` and
+``AnoVAEGAN``.
 
-Counterpart of the latent-critic half of `unsupervised_anomaly_detection_
-brain_mri_tpu/train/gan.py`.  Three optimizers, each Adam with betas
-(0.5, 0.9) and its own state, update three groups of parameters:
+Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/train/gan.py`.
+Each trainer declares its parameter groups (``group_predicates``: name ->
+predicate on a parameter's dotted name), and one optimizer per group, each
+Adam with betas (0.5, 0.9) and its own state, updates it:
 
-  * ``ae``: every parameter (the critic's get zero gradients there);
-  * ``disc``: the critic, ``discriminator.*``;
-  * ``gen``: the encoder's conv pyramid, ``encoder.*`` only (not
-    ``intermediate_conv`` nor ``z_layer``).
+  * ``AAE``/``ConstrainedAAE``: ``ae`` every parameter (the critic's get
+    zero gradients there), ``disc`` the critic ``discriminator.*``, ``gen``
+    the encoder's trunk ``encoder.*`` only (not ``intermediate_conv``,
+    ``z_layer`` nor Chen's ``enc_dense``);
+  * ``fAnoGAN``: ``gen`` (``generator``, ``intermediate_conv_reverse``,
+    ``dec_dense``, ``gen_dense``), ``disc`` (``disc*``) and ``enc``
+    (``encoder``, ``intermediate_conv``, ``z_layer``, ``enc_dense``);
+  * ``AnoVAEGAN``: ``vae`` (the encoder's names, ``mu_layer`` and
+    ``sigma_layer``, and the generator's), ``gen`` and ``disc``.
 
 Each substep differentiates its loss with respect to its group alone: the
 parameters outside the group are frozen (``requires_grad`` off) for the
 substep, so a critic substep builds no graph through the encoder and
-decoder and pays for no backward through them.
+decoder and pays for no backward through them.  Every substep runs the
+whole model in train mode, with fresh draws, so BatchNorm's running
+statistics move once per substep, in the JAX package's order.
 
-One batch runs ``ae_iters`` AE updates (``d_iters`` = 20 while ``epoch``,
-which ``fit`` sets, is <= 5, then 1), ``d_iters`` critic updates, each with
-a fresh prior ``z`` and a fresh interpolate eps, and one generator update.
-Every substep runs the whole model in train mode, so BatchNorm's running
-statistics move ``ae_iters + d_iters + 1`` times per batch, in that order.
-The critic's loss is the WGAN loss plus the gradient penalty on
-``ddx = d D(z_hat) / d z_hat``, taken with ``create_graph`` so that the
-critic's gradient flows through the penalty.  The metrics are the last AE
-update's losses, the last ``disc_loss`` and ``gen_loss``.  Early stopping
-watches ``reconstructionLoss``.
+Schedules per batch:
 
-Checkpoints hold the three optimizer states (``OptimizerGroup``) and the
-``gp`` generator beside the others, so resume continues bit for bit.
+  * ``AAE``: ``ae_iters`` AE updates (``d_iters`` = 20 while ``epoch``,
+    which ``fit`` sets, is <= 5, then 1), ``d_iters`` critic updates, each
+    with a fresh prior ``z`` and a fresh interpolate eps, and one generator
+    update;
+  * ``fAnoGAN`` runs ``2 x numEpochs`` epochs: below ``numEpochs`` (the
+    WGAN phase, tagged ``TRAIN_WGAN``, no VAL) one generator update with a
+    fresh prior ``z``, then 5 critic updates, each with a fresh ``z``; later
+    (``TRAIN_Encoder``) one encoder update on ``fanogan_enc_loss``, and the
+    VAL pass;
+  * ``AnoVAEGAN``: one VAE update on ``rec_sum + kl_weight * mean(kl)``,
+    one generator update, 5 critic updates.
+
+A critic's loss is the WGAN loss plus the gradient penalty on ``ddx = d
+D(interpolate) / d interpolate``, taken with ``create_graph`` so that the
+critic's gradient flows through the penalty.  The image critics keep the
+reference's slope over axis 1 only (H of NHWC).  Early stopping watches
+``reconstructionLoss``.
+
+Checkpoints hold the optimizer states (``OptimizerGroup``) and the ``gp``
+and ``sample`` generators beside the others, so resume continues bit for
+bit.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -71,8 +90,20 @@ class OptimizerGroup:
             o.load_state_dict(state[k])
 
 
+def _names_in(*names: str) -> Callable[[str], bool]:
+    """A predicate: some component of the dotted name is one of ``names``
+    (the JAX package's test over a parameter's path)."""
+    wanted = set(names)
+    return lambda name: any(k in wanted for k in name.split("."))
+
+
+def _disc(name: str) -> bool:
+    return any(k.startswith("disc") for k in name.split("."))
+
+
 class AdversarialTrainerBase(BaseTrainer):
-    """The latent-critic trainers' parameter groups and prior latent."""
+    """The adversarial trainers' parameter groups, substeps and prior
+    latent."""
 
     early_stop_metric = "reconstructionLoss"
 
@@ -80,19 +111,11 @@ class AdversarialTrainerBase(BaseTrainer):
         super().__init__(*args, **kwargs)
         names = [n for n, _ in self.model.named_parameters()]
         self.groups: Dict[str, List[str]] = {
-            "ae": names,
-            "disc": [n for n in names if self.disc_pred(n)],
-            "gen": [n for n in names if self.gen_pred(n)],
-        }
+            group: [n for n in names if pred(n)]
+            for group, pred in self.group_predicates().items()}
 
-    @staticmethod
-    def disc_pred(name: str) -> bool:
-        return any("discriminator" in k for k in name.split("."))
-
-    @staticmethod
-    def gen_pred(name: str) -> bool:
-        # the encoder's conv pyramid only, as the reference's scope
-        return any(k == "encoder" for k in name.split("."))
+    def group_predicates(self) -> Dict[str, Callable[[str], bool]]:
+        raise NotImplementedError
 
     def make_optimizer(self) -> OptimizerGroup:
         params = dict(self.model.named_parameters())
@@ -113,6 +136,26 @@ class AdversarialTrainerBase(BaseTrainer):
             return (x, self.sample_z(generator or self.generator,
                                      x.shape[0]))
         return (x,)
+
+    def forward_train(self, batch, z: Optional[Tensor] = None
+                      ) -> Dict[str, Tensor]:
+        """The whole model in train mode (dropout, batch statistics, the
+        model's draws from the trainer's generators); ``z`` is the prior
+        latent of the models that take one."""
+        self.model.train()
+        args = (batch["x"], z) if self.spec.takes_prior_z else (batch["x"],)
+        return self.model(*args, dropout_generator=self.generator,
+                          **self._noise(self.sample_generator,
+                                        self.gp_generator))
+
+    def image_disc_loss(self, outputs, interpolate: str) -> Tensor:
+        """WGAN critic loss + the gradient penalty at the image
+        interpolate ``outputs[interpolate]`` (NHWC; slopes over axis 1)."""
+        x_hat = outputs[interpolate].detach().requires_grad_(True)
+        (ddx,) = torch.autograd.grad(self.model.discriminate(x_hat)[1].sum(),
+                                     x_hat, create_graph=True)
+        return (L.wgan_disc_loss(outputs["d"], outputs["d_"])
+                + L.wgan_gp_penalty_from_grads(ddx, self.config.scale))
 
     @contextlib.contextmanager
     def only(self, group: str) -> Iterator[None]:
@@ -147,6 +190,12 @@ class AAE(AdversarialTrainerBase):
 
     d_iters: int = 20
 
+    def group_predicates(self):
+        return {"ae": lambda name: True,
+                "disc": _names_in("discriminator"),
+                # the encoder's conv trunk only, as the reference's scope
+                "gen": _names_in("encoder")}
+
     def ae_iters(self) -> int:
         return self.d_iters if self.epoch <= 5 else 1
 
@@ -160,13 +209,6 @@ class AAE(AdversarialTrainerBase):
 
     def compute_losses(self, outputs, batch):  # the VAL pass
         return self.ae_loss(outputs, batch)
-
-    def forward_train(self, batch, z: Optional[Tensor]
-                      ) -> Dict[str, Tensor]:
-        """The whole model in train mode (dropout, batch statistics)."""
-        self.model.train()
-        return self.model(batch["x"], z, dropout_generator=self.generator,
-                          gp=self.gp_generator)
 
     def disc_loss(self, outputs) -> Tensor:
         """WGAN critic loss + the gradient penalty at ``z_hat``."""
@@ -204,3 +246,100 @@ class ConstrainedAAE(AAE):
 
     def ae_loss(self, outputs, batch):
         return L.constrained_loss(batch["x"], outputs, self.config.rho, "z_")
+
+
+class FAnoGAN(AdversarialTrainerBase):
+    """fAnoGAN: ``numEpochs`` WGAN epochs (per batch one generator update,
+    then ``d_iters`` critic updates, no VAL), then ``numEpochs`` encoder
+    epochs (one update of ``enc`` on ``fanogan_enc_loss`` per batch, and
+    the VAL pass on it)."""
+
+    d_iters: int = 5
+
+    def group_predicates(self):
+        return {"gen": _names_in("generator", "intermediate_conv_reverse",
+                                 "dec_dense", "gen_dense"),
+                "disc": _disc,
+                "enc": _names_in("encoder", "intermediate_conv", "z_layer",
+                                 "enc_dense")}
+
+    def num_epochs(self) -> int:
+        return 2 * self.config.numEpochs
+
+    def encoder_phase(self, epoch: int) -> bool:
+        return epoch >= self.config.numEpochs
+
+    def validation_enabled(self, epoch: int) -> bool:
+        return self.encoder_phase(epoch)
+
+    def phase_tag(self, epoch: int) -> str:
+        return "TRAIN_Encoder" if self.encoder_phase(epoch) else "TRAIN_WGAN"
+
+    def compute_losses(self, outputs, batch):  # the VAL pass
+        return L.fanogan_enc_loss(batch["x"], outputs, self.config.kappa)
+
+    def train_step(self, batch) -> Dict[str, Tensor]:
+        if self.encoder_phase(self.epoch):
+            with self.only("enc"):
+                losses = self.compute_losses(self.forward_train(batch), batch)
+                self.update("enc", losses["enc_loss"])
+            self.step += 1
+            return self._scalar_metrics(losses)
+        n = batch["x"].shape[0]
+        with self.only("gen"):
+            outputs = self.forward_train(batch,
+                                         self.sample_z(self.generator, n))
+            gen_loss = L.wgan_gen_loss(outputs["d_"])
+            self.update("gen", gen_loss)
+        disc_loss = torch.zeros((), device=self.device)
+        with self.only("disc"):
+            for _ in range(self.d_iters):
+                outputs = self.forward_train(
+                    batch, self.sample_z(self.generator, n))
+                disc_loss = self.image_disc_loss(outputs, "x_hat")
+                self.update("disc", disc_loss)
+        self.step += 1
+        return {"gen_loss": gen_loss.detach(), "disc_loss": disc_loss.detach(),
+                "reconstructionLoss": torch.zeros((), device=self.device)}
+
+
+class AnoVAEGAN(AdversarialTrainerBase):
+    """AnoVAEGAN: per batch one VAE update (encoder and generator) on
+    ``rec_sum + kl_weight * mean(kl)``, one generator update on the WGAN
+    generator loss, ``d_iters`` critic updates."""
+
+    d_iters: int = 5
+
+    def group_predicates(self):
+        enc = _names_in("encoder", "intermediate_conv", "mu_layer",
+                        "sigma_layer")
+        gen = _names_in("generator", "intermediate_conv_reverse",
+                        "dec_dense")
+        return {"vae": lambda name: enc(name) or gen(name), "gen": gen,
+                "disc": _disc}
+
+    def compute_losses(self, outputs, batch):  # the VAL pass
+        kl = L.vae_kl(outputs["z_mu"], outputs["z_sigma"])
+        rec_sum = L.l1_recon_sum(batch["x"], outputs["out"])
+        return {"kl": torch.mean(kl), "reconstructionLoss": rec_sum,
+                "loss": rec_sum,
+                "enc_loss": rec_sum + self.config.kl_weight * torch.mean(kl)}
+
+    def train_step(self, batch) -> Dict[str, Tensor]:
+        with self.only("vae"):
+            losses = self.compute_losses(self.forward_train(batch), batch)
+            self.update("vae", losses["enc_loss"])
+        metrics = self._scalar_metrics(losses)
+        with self.only("gen"):
+            gen_loss = L.wgan_gen_loss(self.forward_train(batch)["d_"])
+            self.update("gen", gen_loss)
+        metrics["gen_loss"] = gen_loss.detach()
+        disc_loss = torch.zeros((), device=self.device)
+        with self.only("disc"):
+            for _ in range(self.d_iters):
+                disc_loss = self.image_disc_loss(self.forward_train(batch),
+                                                 "x_hat_gp")
+                self.update("disc", disc_loss)
+        metrics["disc_loss"] = disc_loss.detach()
+        self.step += 1
+        return metrics

@@ -1,11 +1,10 @@
 """Trainer registry: reference trainer names -> trainer classes.
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/train/
-registry.py`.  Ported: ``AE``, ``VAE``, ``VAE_You``, ``CE``, ``ceVAE``,
-``GMVAE``, ``GMVAE_spatial``, ``ConstrainedAE`` (``train/base.py``), and
-the latent-critic ``AAE`` and ``ConstrainedAAE`` (``train/gan.py``).
-``fAnoGAN`` and ``AnoVAEGAN`` raise ``NotImplementedError`` until their
-slice lands.
+registry.py`, all 12 trainers: ``AE``, ``VAE``, ``VAE_You``, ``CE``,
+``ceVAE``, ``GMVAE``, ``GMVAE_spatial``, ``ConstrainedAE``
+(``train/base.py``), and the adversarial ``AAE``, ``ConstrainedAAE``,
+``fAnoGAN`` and ``AnoVAEGAN`` (``train/gan.py``).
 """
 
 from __future__ import annotations
@@ -28,15 +27,12 @@ TRAINER_REGISTRY: Dict[str, Type[base.BaseTrainer]] = {
     "ConstrainedAE": base.ConstrainedAE,
     "AAE": gan.AAE,
     "ConstrainedAAE": gan.ConstrainedAAE,
+    "fAnoGAN": gan.FAnoGAN,
+    "AnoVAEGAN": gan.AnoVAEGAN,
 }
-
-NOT_YET_PORTED = ("fAnoGAN", "AnoVAEGAN")
 
 
 def get_trainer(name: str) -> Type[base.BaseTrainer]:
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"trainer {name!r} is not yet ported, see ROADMAP.md")
     if name not in TRAINER_REGISTRY:
         raise KeyError(
             f"unknown trainer {name!r}; known: {sorted(TRAINER_REGISTRY)}")
