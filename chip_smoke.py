@@ -75,7 +75,19 @@ last line):
      schedule at batch 2 with 1 critic update, losses within SPREAD_FACTOR
      x float32 rounding's spread; h. warm train slices/s of each schedule
      with its FLOPs per step (``torch.utils.flop_counter``) and the rate
-     they make, and the warm Chen ``evaluate()`` split;
+     they make, and the warm Chen ``evaluate()`` split; i. the parallel
+     layer: a. ``--preset AE --synthetic --device cuda --mesh-data 1``
+     through the CLI on 16 slices per volume (batch 32, 1 epoch) with
+     torchrun's environment for one rank: an NCCL group of one, one median
+     launch per evaluated volume; b. two ranks on this one card over gloo
+     (``chip_smoke.py --rank-worker RANK 2 DIR``): which gloo collectives
+     take CUDA tensors, the sharded median of (110, 128, 128) (each rank's
+     (59, 128, 128) slab through the kernel) bit-equal to the whole-volume
+     kernel, one float32 AE step (batch 128 as 64 + 64) within
+     ``compare_training``'s bounds of one process, one AAE batch within
+     phase 9d's bounds, ``reconstruct_device`` of 37 slices with MC dropout
+     within TOL, and their times; c. the AE preset's step with no mesh and
+     with a one-rank mesh, in turns;
  10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
@@ -2164,6 +2176,497 @@ def phase_last_timings(cudnn_tf32, matmul_tf32, chen_wd):
     return sps, rates, total, split
 
 
+# ---------------------------------------------------------------------------
+# phase 9i: the parallel layer (``--mesh-data``): NCCL at world 1 through
+# the CLI, and two ranks on this one card over gloo
+
+
+MESH_WORLD = 2
+MESH_BATCH = 128  # the AE preset's batch, 64 rows per rank
+MESH_CLI_BATCH = ("-b", "32")  # GAN_SLICES leave 80-96 TRAIN slices
+MESH_TIMED_STEPS = 10
+MESH_RECON_SLICES = 37  # odd: padded to 38, 19 rows per rank
+MESH_TIMEOUT_S = 300
+
+
+def torchrun_env(port):
+    """``torchrun``'s environment for one rank of a world of one."""
+    return {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+            "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_cli(base):
+    """a. ``--preset AE --synthetic --device cuda --mesh-data 1`` through
+    the CLI on GAN_SLICES (batch 32, 1 epoch) with torchrun's environment
+    for one rank: the CLI joins an NCCL group of one (the backend it
+    passes to ``init_process_group`` is recorded), trains, evaluates and
+    calibrates; one median launch per evaluated volume (3 x TEST + VAL);
+    the group is gone afterwards."""
+    import torch
+    import torch.distributed as dist
+
+    seen = []
+    real_init = dist.init_process_group
+
+    def spy(backend=None, *args, **kwargs):
+        seen.append(backend)
+        return real_init(backend, *args, **kwargs)
+
+    saved = {k: os.environ.get(k) for k in torchrun_env(0)}
+    os.environ.update(torchrun_env(free_port()))
+    dist.init_process_group = spy
+    try:
+        wd, launches, _ = run_protocol(
+            base, "AE", GAN_SLICES + MESH_CLI_BATCH + ("--mesh-data", "1"))
+    finally:
+        dist.init_process_group = real_init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    backend = "nccl" if torch.device(DEVICE).type == "cuda" else "gloo"
+    check(seen == [backend], f"process group backends {seen}, expected "
+          f"{backend}")
+    check(not dist.is_initialized(), "the CLI left its process group up")
+    with open(os.path.join(wd, "config.json")) as f:
+        mesh = json.load(f)["mesh"]
+    check(mesh["data"] == 1, f"config.json mesh {mesh}")
+    print(f"[mesh] --mesh-data 1 through the CLI: {backend} group of 1 "
+          f"joined from torchrun's environment and left; {launches} median "
+          f"launches; config.json mesh {mesh}")
+    torch.cuda.synchronize()
+    return launches
+
+
+def gloo_accepts(world):
+    """Which gloo collectives take a CUDA tensor as it is (True) or
+    refuse it (the error)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.ones(4, device=DEVICE)
+    ops = {"all_reduce": lambda: dist.all_reduce(t.clone()),
+           "broadcast": lambda: dist.broadcast(t.clone(), 0),
+           "all_gather": lambda: dist.all_gather(
+               [torch.empty_like(t) for _ in range(world)], t)}
+    out = {}
+    for name, op in ops.items():
+        try:
+            op()
+            torch.cuda.synchronize()
+            out[name] = True
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return out
+
+
+def mesh_inputs():
+    """The seeded inputs both ranks and the one-process references use:
+    the AE batch and the uneven reconstruction batch (numpy, CPU)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    c = ae_float32()
+    shape = (c.outputHeight, c.outputWidth, 1)
+    x = rng.uniform(size=(MESH_BATCH,) + shape).astype(np.float32)
+    rec = rng.uniform(size=(MESH_RECON_SLICES,) + shape).astype(np.float32)
+    return x, rec
+
+
+def mesh_volume():
+    import torch
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    return torch.rand(SERVE_SHAPE, generator=g, device=DEVICE)
+
+
+def ae_float32():
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+
+    return preset("AE", batchsize=MESH_BATCH, dropout_rate=0.0,
+                  compute_dtype="float32")
+
+
+def aae_config():
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+
+    return preset("AAE", batchsize=8, dropout_rate=0.0, learningrate=5e-5,
+                  compute_dtype="float32")
+
+
+def synced_ms(fn, n):
+    """Median wall time of ``fn`` in ms, each call synchronised (the
+    ranks' collectives are host round trips)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rank_worker(rank, world, workdir):
+    """One of the ranks of phase 9i b, on this card over gloo (run as
+    ``chip_smoke.py --rank-worker RANK WORLD DIR``): gloo's acceptance of
+    CUDA tensors; the sharded median of SERVE_SHAPE (its launches counted);
+    ``reconstruct_device`` of MESH_RECON_SLICES slices with MC dropout from
+    the seeded init; one float32 AE step of its 64 rows and the AAE batch,
+    each from the start state in DIR; then its warm times.  Writes
+    DIR/rank_RANK.pt."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+        MeshConfig,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel import (
+        make_mesh,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
+        all_gather_batch,
+        initialize_multihost,
+        psum_mean,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.distributed_eval import (
+        sharded_median_filter_3d,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"file://{os.path.join(workdir, 'init')}", world,
+                         rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    ctx = make_mesh(MeshConfig(data=world), devices=[DEVICE] * world)
+    out = {"gloo": gloo_accepts(world)}
+
+    vol = mesh_volume()
+    local = ctx.shard_batch(vol)
+    median.LAUNCHES = 0
+    shard = sharded_median_filter_3d(ctx, local)
+    torch.cuda.synchronize()
+    out["median_launches"] = median.LAUNCHES
+    whole = all_gather_batch(ctx, shard)
+    out["median_equal"] = bool(torch.equal(
+        whole, median.median_filter_3d_cuda(vol)))
+
+    x, rec_x = mesh_inputs()
+    ae = get_trainer("AE")(ae_float32(), mesh=ctx)
+    ae.init_state()
+    rec = ae.reconstruct_device(
+        torch.from_numpy(rec_x), dropout=True,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    out["recon"] = {k: v.cpu() for k, v in rec.items()}
+    start = torch.load(os.path.join(workdir, "ae_start.pt"),
+                       map_location=DEVICE, weights_only=True)
+    ae.model.load_state_dict(start["model"])
+    ae.optimizer.load_state_dict(start["optimizer"])
+    metrics = ae.train_step(ctx.shard_batch({"x": x}))
+    out["ae_loss"] = float(psum_mean(ctx, metrics["loss"]))
+    out["ae_state"] = {k: v.to("cpu", copy=True)
+                       for k, v in ae.model.state_dict().items()}
+
+    start = torch.load(os.path.join(workdir, "aae_start.pt"),
+                       map_location=DEVICE, weights_only=True)
+    aae = get_trainer("AAE")(aae_config(), mesh=ctx)
+    aae.init_state()
+    aae.epoch = 6  # ae_iters 1
+    aae.model.load_state_dict(start["model"])
+    aae.optimizer.load_state_dict(start["optimizer"])
+    for k, g in aae._streams().items():
+        g.set_state(start[k].cpu())
+    m = aae.train_step(ctx.shard_batch({"x": start["x"]}))
+    keys = sorted(m)
+    out["aae_losses"] = dict(zip(keys, (float(v) for v in psum_mean(
+        ctx, torch.stack([m[k] for k in keys])))))
+    out["aae_state"] = {k: v.to("cpu", copy=True)
+                        for k, v in aae.model.state_dict().items()}
+
+    batch = ctx.shard_batch({"x": x})
+    out["step_ms"] = synced_ms(lambda: ae.train_step(batch),
+                               MESH_TIMED_STEPS)
+    out["sharded_median_ms"] = synced_ms(
+        lambda: sharded_median_filter_3d(ctx, local), MESH_TIMED_STEPS)
+    slab = torch.cat([local[:2], local, local[-2:]]).contiguous()
+    out["slab_kernel_ms"] = cuda_ms(lambda: median.median_filter_3d_cuda(
+        slab))
+    torch.save(out, os.path.join(workdir, f"rank_{rank}.pt"))
+    ctx.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def aae_start(workdir):
+    """The one-process AAE trainer on the card after 2 batches at batch 8
+    (ae_iters 1), its state, optimizer and generators saved for the ranks
+    with the third batch; returns the trainer (at that state) and the
+    batch."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
+        epoch_indices,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    config = aae_config()
+    _, _, healthy, _ = lesion_cohort("AAE")
+    pool = np.asarray(healthy.slices("TRAIN"), np.float32)
+    idxs = epoch_indices(np.random.default_rng((config.seed + 1, 0)),
+                         len(pool), config.batchsize)[:3]
+    t = get_trainer("AAE")(config, device=DEVICE)
+    t.init_state()
+    t.epoch = 6
+    for rows in idxs[:2]:
+        t.train_step({"x": torch.from_numpy(pool[rows]).to(DEVICE)})
+    x = torch.from_numpy(pool[idxs[2]])
+    torch.save({"model": t.model.state_dict(),
+                "optimizer": t.optimizer.state_dict(),
+                **{k: g.get_state() for k, g in t._streams().items()},
+                "x": x}, os.path.join(workdir, "aae_start.pt"))
+    return t, x
+
+
+def phase_mesh_ranks(base):
+    """b, c. MESH_WORLD ranks on this one card over gloo (which moves the
+    collectives' tensors through the host; their times measure the ranks'
+    correctness and host round trips, not data-parallel throughput),
+    against one process on the card:
+      * the sharded median of SERVE_SHAPE, each rank's (59, 128, 128) slab
+        through ``csrc/median5.cu``, bit-equal to the whole-volume kernel;
+      * one float32 AE step (TF32 off, batch 128 split 64 + 64; Adam's
+        third, from the one-process state after 2 steps) within
+        ``compare_training``'s bounds of the one-process step on the whole
+        batch, the ranks' states bit-equal;
+      * one AAE batch (batch 8, ae_iters 1, 20 critic updates) from the
+        one-process state after 2 batches, every draw made for the whole
+        batch from the same generators: losses within TOL or SPREAD_FACTOR
+        x float32 rounding's spread, parameters within phase 9d's bounds;
+      * ``reconstruct_device`` of MESH_RECON_SLICES slices with MC dropout
+        within TOL of one process;
+    and the times of the step, the median and the slab kernel per rank.
+    Returns (median launches of the ranks' sharded calls, times)."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    workdir = tempfile.mkdtemp(dir=base)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the one-process references, made before the ranks share the card
+    aae, aae_x = aae_start(workdir)
+    start = {k: v.detach().clone() for k, v in aae.model.state_dict().items()}
+    opt_start = copy.deepcopy(aae.optimizer.state_dict())
+    gen_start = {k: g.get_state() for k, g in aae._streams().items()}
+
+    def aae_batch(state):
+        t = get_trainer("AAE")(aae_config(), device=DEVICE)
+        t.init_state()
+        t.epoch = 6
+        t.model.load_state_dict(state)
+        t.optimizer.load_state_dict(copy.deepcopy(opt_start))
+        for k, g in t._streams().items():
+            g.set_state(gen_start[k])
+        m = t.train_step({"x": aae_x.to(DEVICE)})
+        return t, {k: float(v) for k, v in m.items()}
+
+    aae_ref, aae_m = aae_batch(start)
+    spread = dict.fromkeys(aae_m, 0.0)
+    pg = torch.Generator().manual_seed(SEED + 1)
+    for _ in range(ROUNDING_RUNS):
+        _, m = aae_batch({k: (v * (1 + 2 ** -23 * torch.randn(
+            v.shape, generator=pg).to(DEVICE))) if v.is_floating_point()
+            else v for k, v in start.items()})
+        spread = {k: max(s, abs(m[k] - aae_m[k])) for k, s in spread.items()}
+    x, rec_x = mesh_inputs()
+    ae = get_trainer("AE")(ae_float32(), device=DEVICE)
+    ae.init_state()
+    rec_ref = ae.reconstruct_device(
+        torch.from_numpy(rec_x), dropout=True,
+        generator=torch.Generator(device=DEVICE).manual_seed(SEED))
+    # the compared step is Adam's third: its first moves every element by
+    # lr, so a rounding-level gradient would flip whole updates
+    for warm in (x[:, ::-1], x[:, :, ::-1]):
+        ae.train_step({"x": torch.from_numpy(warm.copy()).to(DEVICE)})
+    ae_start = {k: v.detach().clone() for k, v in ae.model.state_dict().items()}
+    torch.save({"model": ae.model.state_dict(),
+                "optimizer": ae.optimizer.state_dict()},
+               os.path.join(workdir, "ae_start.pt"))
+    ae_loss = float(ae.train_step({"x": torch.from_numpy(x).to(DEVICE)})[
+        "loss"])
+    ae_ref = {k: v.detach().clone() for k, v in ae.model.state_dict().items()}
+    batch = {"x": torch.from_numpy(x).to(DEVICE)}
+    one_step_ms = synced_ms(lambda: ae.train_step(batch), MESH_TIMED_STEPS)
+    vol = mesh_volume()
+    whole_ms = cuda_ms(lambda: median.median_filter_3d_cuda(vol))
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(MESH_WORLD):
+        log = open(os.path.join(workdir, f"log_{rank}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             str(rank), str(MESH_WORLD), workdir], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    try:
+        codes = [p.wait(timeout=MESH_TIMEOUT_S) for p, _ in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    for rank, code in enumerate(codes):
+        with open(os.path.join(workdir, f"log_{rank}.txt")) as f:
+            text = f.read()
+        check(code == 0, f"rank {rank} exited {code}: {text[-3000:]}")
+    outs = [torch.load(os.path.join(workdir, f"rank_{r}.pt"),
+                       weights_only=False) for r in range(MESH_WORLD)]
+    print(f"[mesh] {MESH_WORLD} ranks on {DEVICE} over gloo: {ranks_s:.1f} s "
+          f"wall (start-up, build check, every check and timing)")
+    print(f"[mesh] gloo with CUDA tensors as they are: " + ", ".join(
+        f"{k} {'accepted' if v is True else 'refused (' + v + ')'}"
+        for k, v in outs[0]["gloo"].items())
+        + "; the port's collectives, ring shifts included, use only "
+          "these")
+
+    launches = sum(o["median_launches"] for o in outs)
+    check(all(o["median_launches"] == 1 for o in outs),
+          f"sharded median launches per rank "
+          f"{[o['median_launches'] for o in outs]}")
+    check(all(o["median_equal"] for o in outs),
+          "sharded median != the whole-volume kernel")
+    for name in ("ae_state", "aae_state"):
+        for k, v in outs[0][name].items():
+            check(torch.equal(outs[1][name][k], v),
+                  f"the ranks' {name} differ at {k}")
+    a, b = outs[0]["ae_loss"], ae_loss
+    check(abs(a - b) <= TOL * abs(b), f"AE loss world 2 {a} vs one {b}")
+    config = ae_float32()
+    _, worst_fed, worst, beyond, frac, upd = compare_training(
+        {k: v.to(DEVICE) for k, v in outs[0]["ae_state"].items()}, {
+            k: v.cpu() for k, v in ae_ref.items()},
+        {k: v.cpu() for k, v in ae_start.items()}, config, 3)
+    print(f"[mesh] AE step 3, float32, batch {MESH_BATCH} as 2 x "
+          f"{MESH_BATCH // MESH_WORLD}: loss {a} vs one process {b}; "
+          f"parameters max|diff| {worst:.3e}, {beyond} elements beyond 1e-5 "
+          f"(largest share in one tensor {frac:.3e}), relative update error "
+          f"{upd:.3e}; BN-fed conv biases max|diff| {worst_fed:.3e}")
+
+    m2 = outs[0]["aae_losses"]
+    over = {k: abs(m2[k] - v) / max(TOL * abs(v), SPREAD_FACTOR * spread[k])
+            for k, v in aae_m.items()}
+    print(f"[mesh] AAE batch (1 AE, 20 critic, 1 generator update), batch 8 "
+          f"as 2 x 4: losses world 2 {m2}, one process {aae_m}; diff / "
+          f"max(TOL, {SPREAD_FACTOR} x spread) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in over.items()))
+    check(max(over.values()) <= 1.0, f"AAE losses differ: {over}")
+    groups = aae_ref.groups
+
+    def bound_of(k):
+        steps = [3] + ([3] if k in groups["gen"] else []) + (
+            list(range(41, 61)) if k in groups["disc"] else [])
+        return 2 * aae_config().learningrate * sum(
+            adam_step_bound(t, 0.5, 0.9) for t in steps) + 1e-6
+
+    _, a_fed, a_worst, a_beyond, _, a_upd = compare_training(
+        outs[0]["aae_state"], {k: v.cpu() for k, v in
+                               aae_ref.model.state_dict().items()},
+        {k: v.cpu() for k, v in start.items()}, aae_config(), 1, bound_of)
+    print(f"[mesh] AAE batch: parameters max|diff| {a_worst:.3e}, "
+          f"{a_beyond} elements beyond 1e-5, relative update error "
+          f"{a_upd:.3e}; BN-fed conv biases max|diff| {a_fed:.3e}")
+
+    rec_err = max(float((outs[0]["recon"][k] - v.cpu()).abs().max())
+                  for k, v in rec_ref.items())
+    check(set(outs[0]["recon"]) == set(rec_ref) and rec_err <= TOL,
+          f"reconstruct_device world 2 vs one process: {rec_err}")
+    print(f"[mesh] reconstruct_device of {MESH_RECON_SLICES} slices with MC "
+          f"dropout (padded to {MESH_RECON_SLICES + 1}): max|d| vs one "
+          f"process {rec_err:.3e}")
+
+    times = {"one_step_ms": one_step_ms,
+             "step_ms": max(o["step_ms"] for o in outs),
+             "whole_median_ms": whole_ms,
+             "sharded_median_ms": max(o["sharded_median_ms"] for o in outs),
+             "slab_kernel_ms": max(o["slab_kernel_ms"] for o in outs)}
+    print(f"[mesh] times: AE float32 step at batch {MESH_BATCH}, one process"
+          f" {one_step_ms:.2f} ms, {MESH_WORLD} gloo ranks on one card "
+          f"{times['step_ms']:.2f} ms (slowest rank, host wall clock, each "
+          f"step synchronised; median of {MESH_TIMED_STEPS}); median of "
+          f"{SERVE_SHAPE}: whole-volume kernel {whole_ms:.4f} ms (CUDA "
+          f"events), sharded call per rank {times['sharded_median_ms']:.3f}"
+          f" ms (host wall clock, halo exchange through gloo included), its "
+          f"{(SERVE_SHAPE[0] // MESH_WORLD + 4,) + SERVE_SHAPE[1:]} slab "
+          f"kernel alone {times['slab_kernel_ms']:.4f} ms (CUDA events)")
+    return launches, times
+
+
+def phase_mesh_timings(cudnn_tf32, matmul_tf32):
+    """c. The AE preset's train step (bf16, batch 128) at world 1: no mesh
+    against a one-rank mesh, which issues no collective; after WARM_STEPS
+    each, in turns (plain, mesh, mesh, plain, twice), each sample the
+    median of 2 x MESH_TIMED_STEPS synchronised steps."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+        MeshConfig,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel import (
+        make_mesh,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    x, _ = mesh_inputs()
+    batch = {"x": torch.from_numpy(x).to(DEVICE)}
+    one = make_mesh(MeshConfig(data=1), devices=[DEVICE])
+    trainers = {}
+    for name, ctx in (("no mesh", None), ("mesh 1", one)):
+        t = get_trainer("AE")(preset("AE"), device=DEVICE, mesh=ctx)
+        t.init_state()
+        trainers[name] = t
+    for t in trainers.values():
+        for _ in range(WARM_STEPS):
+            t.train_step(batch)
+    times = {k: [] for k in trainers}
+    for name in ("no mesh", "mesh 1", "mesh 1", "no mesh") * 2:
+        t = trainers[name]
+        times[name].append(synced_ms(lambda: t.train_step(batch),
+                                     2 * MESH_TIMED_STEPS))
+    print(f"[mesh] AE preset train step (bf16, batch 128), ms, in turns: "
+          + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}"
+                      for k, vs in times.items()))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -2187,6 +2690,11 @@ def timed_phase(name, fn, *args):
 
 def main():
     import torch
+
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank-worker":
+        sys.path.insert(0, ROOT)
+        rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; "
@@ -2245,6 +2753,15 @@ def main():
         last_sps, last_rates, chen_eval_ms, chen_split = timed_phase(
             "9h ResNet + image critics timings", phase_last_timings, *tf32,
             last_wds["constrainedAAE_Chen"])
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        launches += timed_phase("9i-a mesh 1 through the CLI (NCCL)",
+                                phase_mesh_cli, tmp)
+        mesh_launches, mesh_times = timed_phase(
+            "9i-b mesh 2 ranks on one card (gloo)", phase_mesh_ranks, tmp)
+        launches += mesh_launches
+        mesh1_ms = timed_phase("9i-c mesh 1 step timings",
+                               phase_mesh_timings, *tf32)
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2288,7 +2805,16 @@ def main():
                                            for p, v in chen_split.items())
           + f"; device busy {100 * busy['constrainedAAE_Chen evaluate']:.1f} "
           f"%); card vs CPU: forwards max|d| {last_fwd:.3e}, adversarial "
-          f"batch losses max relative diff {last_rel:.3e}; median launches "
+          f"batch losses max relative diff {last_rel:.3e}")
+    print(f"[summary] parallel layer: AE step (float32, batch 128) one "
+          f"process {mesh_times['one_step_ms']:.2f} ms, {MESH_WORLD} gloo "
+          f"ranks on one card {mesh_times['step_ms']:.2f} ms (host round "
+          f"trips, not data-parallel throughput); AE preset step (bf16) no "
+          f"mesh {mesh1_ms['no mesh']:.3f} ms, --mesh-data 1 "
+          f"{mesh1_ms['mesh 1']:.3f} ms; median of {SERVE_SHAPE} whole "
+          f"{mesh_times['whole_median_ms']:.4f} ms, sharded per rank "
+          f"{mesh_times['sharded_median_ms']:.3f} ms (slab kernel "
+          f"{mesh_times['slab_kernel_ms']:.4f} ms); median launches "
           f"{launches} in all")
     print(json.dumps({"kernels": [{
         "name": "median5",

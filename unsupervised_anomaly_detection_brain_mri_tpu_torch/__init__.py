@@ -8,14 +8,12 @@ dataset loaders, artifacts) is the port's own copy.
 Every kernel the JAX package wrote in Pallas is a hand-written kernel here
 (``csrc/``), and a CUDA tensor always reaches its kernel or raises.
 
-Ported so far: 14 of the 18 presets (``AE``, ``AE_spatial``, ``VAE``,
-``VAE_Zimmerer``, ``VAE_You``, ``CE``, ``ceVAE``, ``ceVAE_Zimmerer``,
-``GMVAE``, ``GMVAE_spatial``, ``GMVAE_You``, ``constrainedAE``, ``AAE`` and
-``constrainedAAE``) end to end: training (``train/``), ``evaluate()``
-with MC dropout and threshold
-transfer (``eval/evaluate.py``), serving (``eval/inference.py``) and the CLI
-(``python -m unsupervised_anomaly_detection_brain_mri_tpu_torch --preset AE
---synthetic``; ``... infer``).
+Ported: all 18 presets end to end: training (``train/``), ``evaluate()``
+with MC dropout and threshold transfer (``eval/evaluate.py``), serving
+(``eval/inference.py``) and the CLI (``python -m
+unsupervised_anomaly_detection_brain_mri_tpu_torch --preset AE
+--synthetic``; ``... infer``); and the data-parallel layer
+(``parallel/``, ``--mesh-data N`` under ``torchrun``).
 """
 
 __version__ = "0.1.0"

@@ -18,9 +18,20 @@ lesion cohort's VAL split (written to ``calibration.json``), and
 ``evaluate()`` again at that threshold; ``--metrics-out`` collects one
 JSON row per evaluation.  The port always runs the parity architecture:
 ``--parity`` and ``--fast-convt-grad`` are accepted and change nothing;
-``--tpu-fast``, ``--s2d-stem``, ``--d2s-head``, ``--mesh-data`` and
-``--tb-every-n`` raise ``NotImplementedError``.  ``validate-data`` is not
-ported yet (exit status 2).
+``--tpu-fast``, ``--s2d-stem``, ``--d2s-head`` (ROADMAP.md queue item 4)
+and ``--tb-every-n`` (item 3) raise ``NotImplementedError``.
+``validate-data`` is not ported yet (item 3; exit status 2).
+
+``--mesh-data N`` trains, evaluates and calibrates data-parallel on N
+ranks, one process per device (``parallel/``), started by ``torchrun``:
+
+    torchrun --nproc_per_node N -m \
+        unsupervised_anomaly_detection_brain_mri_tpu_torch \
+        --preset AE --synthetic --device cuda --mesh-data N
+
+Each rank runs on ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: on the
+CPU over gloo); rank 0 writes the workdir, the artifacts,
+``calibration.json`` and ``--metrics-out``.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
     DATASET_PARTITIONS,
     Config,
     Dataset,
+    MeshConfig,
     Optimizer,
     Options,
     PathConfig,
@@ -370,14 +382,13 @@ def infer_main(argv: Optional[List[str]] = None) -> int:
 
 
 # flags of the JAX CLI that select something the port does not have yet
-_S2D_D2S = "the non-parity s2d/d2s options, ROADMAP.md queue item 3"
+_S2D_D2S = "the non-parity s2d/d2s options, ROADMAP.md queue item 4"
 _NOT_PORTED_FLAGS = (
     ("tpu_fast", "--tpu-fast", _S2D_D2S),
     ("s2d_stem", "--s2d-stem", _S2D_D2S),
     ("d2s_head", "--d2s-head", _S2D_D2S),
-    ("mesh_data", "--mesh-data", "the parallel layer, ROADMAP.md queue "
-                                 "item 4"),
-    ("tb_every_n", "--tb-every-n", "TensorBoard logging"),
+    ("tb_every_n", "--tb-every-n", "TensorBoard logging, ROADMAP.md queue "
+                                   "item 3"),
 )
 
 
@@ -395,17 +406,16 @@ def train_main(argv: Optional[List[str]] = None) -> int:
 
     import torch
 
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {args.device!r} requested but no CUDA "
                            "device is available")
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
-        determine_threshold_on_labeled_patients,
-        evaluate,
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel import (
+        make_mesh,
     )
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
-        save_calibration,
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
+        initialize_multihost,
     )
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
         get_trainer,
@@ -435,6 +445,7 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         restore_steps=args.restore_steps, tv_lambda=args.tv_lambda,
         use_gradient_based_restoration=args.use_gradient_based_restoration,
         fastConvTGrad=args.fast_convt_grad,
+        mesh=MeshConfig(data=args.mesh_data),
     )
     if args.preset:
         # preset values win over flags the user did not pass
@@ -444,7 +455,8 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         config = config.replace(
             **{k: v for k, v in overrides.items() if k in keep})
         config = config.replace(compute_dtype=args.precision,
-                                fastConvTGrad=args.fast_convt_grad)
+                                fastConvTGrad=args.fast_convt_grad,
+                                mesh=MeshConfig(data=args.mesh_data))
     else:
         config = Config().replace(**overrides)
     options = Options(paths=paths, sliceStart=args.slices_start,
@@ -459,13 +471,55 @@ def train_main(argv: Optional[List[str]] = None) -> int:
 
     trainer_cls = get_trainer(config.trainer)
     train_ds_kind = Dataset.SYNTH if args.synthetic else Dataset.BRAINWEB
+    mesh, owns_group = None, False
+    if args.mesh_data:
+        # one process per device: NCCL for ranks on cards, gloo on the CPU
+        joined = torch.distributed.is_initialized()
+        initialize_multihost(backend="nccl" if device.type == "cuda"
+                             else "gloo")
+        owns_group = not joined and torch.distributed.is_initialized()
+        try:
+            mesh = make_mesh(config.mesh, devices=None
+                             if device.type == "cuda"
+                             else [device] * args.mesh_data)
+        except (ValueError, RuntimeError):
+            if owns_group:
+                torch.distributed.destroy_process_group()
+            raise
+        print(f"[mesh] rank {mesh.rank} of {mesh.n_data} on {mesh.device}"
+              + (f" ({mesh.backend})" if mesh.parallel else ""))
+    try:
+        rc = _train_protocol(args, config, options, paths, trainer_cls,
+                             train_ds_kind, mesh)
+        if mesh is not None:
+            mesh.barrier()
+        return rc
+    finally:
+        if owns_group:
+            torch.distributed.destroy_process_group()
+
+
+def _train_protocol(args, config: Config, options: Options,
+                    paths: PathConfig, trainer_cls, train_ds_kind: Dataset,
+                    mesh) -> int:
+    """``fit``, the evaluations and the threshold transfer of
+    ``train_main``; under a mesh every rank runs them and rank 0 writes
+    ``calibration.json`` and ``--metrics-out``."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        determine_threshold_on_labeled_patients,
+        evaluate,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
+        save_calibration,
+    )
+
     dataset_hc = build_dataset(options, config, train_ds_kind, "healthy")
     workdir = args.workdir or os.path.join(
         paths.checkpoint_dir, config.model,
         config.model_dir(train_ds_kind.value))
     os.makedirs(workdir, exist_ok=True)
     trainer = trainer_cls(config, options, workdir=workdir,
-                          device=args.device)
+                          device=args.device, mesh=mesh)
     trainer.fit(dataset_hc)
 
     def eval_ds(kind: Dataset):
@@ -492,7 +546,7 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         })
 
     def flush_metrics() -> None:
-        if args.metrics_out and metric_rows:
+        if args.metrics_out and metric_rows and trainer.is_writer:
             with open(args.metrics_out, "w") as f:
                 for row in metric_rows:
                     f.write(json.dumps(json_sanitize(row)) + "\n")
@@ -540,10 +594,11 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         [eval_ds(eval_kinds[0])], trainer, transfer_options, config)
     print(f"Optimal threshold on MS Lesion Validation Set without optimal "
           f"postprocessing: {thresh} (Dice-Score {best_dice})")
-    calib_path = save_calibration(
-        workdir, thresh, best_dice, transfer_options,
-        dataset=eval_kinds[0].value, epoch=config.numEpochs)
-    print(f"Calibration written to {calib_path}")
+    if trainer.is_writer:
+        calib_path = save_calibration(
+            workdir, thresh, best_dice, transfer_options,
+            dataset=eval_kinds[0].value, epoch=config.numEpochs)
+        print(f"Calibration written to {calib_path}")
     for kind in eval_kinds:
         run_eval(kind, f"{kind.value}-VALthresh_{thresh:.5f}",
                  threshold=thresh, applyHyperIntensityPrior=False)
@@ -557,8 +612,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] == "infer":
         return infer_main(argv[1:])
     if argv and argv[0] == "validate-data":
-        print("'validate-data' is not yet ported to the PyTorch package; "
-              "see ROADMAP.md, or use unsupervised_anomaly_detection_brain_"
-              "mri_tpu", file=sys.stderr)
+        print("'validate-data' is not yet ported to the PyTorch package "
+              "(ROADMAP.md queue item 3); use unsupervised_anomaly_"
+              "detection_brain_mri_tpu", file=sys.stderr)
         return 2
     return train_main(argv)

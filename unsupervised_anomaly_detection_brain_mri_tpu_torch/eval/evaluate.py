@@ -28,6 +28,12 @@ turns a tuple into a seed through numpy's ``SeedSequence``.  Serving uses
 packages in distribution, and exactly only with given noise and no
 dropout.
 
+Under a data-parallel mesh every rank evaluates every volume: the
+trainer's ``reconstruct_device`` splits each batch over the ranks and hands
+every rank the whole reconstruction, and each rank post-processes it (the
+median once per volume on every rank), so the metrics agree on all ranks;
+only the trainer's writer (rank 0) writes artifacts.
+
 Artifacts are the JAX package's: ``evalPC.npy``/``.txt``/``.json``,
 ``rocPC.npy``, ``prcPC.npy`` and the histogram, curve and slice pictures of
 ``eval/artifacts.py`` (the port's copy of the JAX package's module).  The pictures need matplotlib and
@@ -82,6 +88,12 @@ def _plot(what: str, name: str, *args: Any, **kwargs: Any) -> None:
         print(f"[artifacts] {missing} is not installed: {what} not written")
         return
     getattr(module, name)(*args, **kwargs)
+
+
+def _writes(trainer) -> bool:
+    """Whether this process writes artifacts: the trainer's writer (rank 0)
+    under a mesh; a duck-typed trainer without ``is_writer`` writes."""
+    return getattr(trainer, "is_writer", True)
 
 
 def _sync(device: torch.device) -> None:
@@ -282,7 +294,8 @@ def _evaluate(dataset, trainer, sample_dir: str, options: Options,
     ``restorationVolumeBatch`` volumes at a time for the trainers that
     restore a volume stack.  Residuals stay on the device; inputs, labels,
     reconstructions and MC variance maps are kept on the host."""
-    os.makedirs(sample_dir, exist_ok=True)
+    if _writes(trainer):
+        os.makedirs(sample_dir, exist_ok=True)
     patients = dataset.patients_of(split)
     print(f"Testing {len(patients)} patients...")
     device = torch.device(trainer.device)
@@ -430,7 +443,9 @@ def evaluate(dataset, trainer, options: Options, config: Config,
         config.model_dir(str(getattr(dataset, "name", "ds"))),
         f"eval-{epoch}-{ts}" + (f"-{description}" if description else ""))
     sample_dir = os.path.join(eval_dir, "samples_test_PC")
-    os.makedirs(sample_dir, exist_ok=True)
+    writes = _writes(trainer)
+    if writes:
+        os.makedirs(sample_dir, exist_ok=True)
 
     eval_pc, patients = _evaluate(dataset, trainer, sample_dir, options,
                                   config, split="TEST")
@@ -450,11 +465,12 @@ def evaluate(dataset, trainer, options: Options, config: Config,
     histogram_range = (0.01, 0.075)
     eval_pc["diffHistogram"], _ = np.histogram(diffs_np, bins=50,
                                                range=histogram_range)
-    _plot("residual histogram", "plot_histogram_with_labels",
-          diffs_np, eval_pc["labelmaps"], "auto", histogram_range,
-          "Histogram of difference images in the lesion testing dataset",
-          export_pdf=os.path.join(
-              eval_dir, "testing_lesions_diffimages_histogram.pdf"))
+    if writes:
+        _plot("residual histogram", "plot_histogram_with_labels",
+              diffs_np, eval_pc["labelmaps"], "auto", histogram_range,
+              "Histogram of difference images in the lesion testing dataset",
+              export_pdf=os.path.join(
+                  eval_dir, "testing_lesions_diffimages_histogram.pdf"))
     if "epistemic_variance" in eval_pc:
         ev = eval_pc["epistemic_variance"]
         pos = ev[ev >= 0]
@@ -462,6 +478,7 @@ def evaluate(dataset, trainer, options: Options, config: Config,
             hist_range = (1e-5, max(float(np.percentile(pos, 99.8)), 2e-5))
             eval_pc["uncertaintyHistogram"], _ = np.histogram(
                 ev, bins=50, range=hist_range)
+        if pos.size and writes:
             _plot("epistemic-variance histogram",
                   "plot_histogram_with_labels", ev, eval_pc["labelmaps"], 50,
                   hist_range, "Histogram of epistemic variances",
@@ -478,19 +495,22 @@ def evaluate(dataset, trainer, options: Options, config: Config,
               for name in ("roc", "prc", "dice_curve")}
     if options.computeROC:
         eval_pc["diff_AUC"] = float(summary["auc"])
-        np.save(os.path.join(eval_dir, "rocPC.npy"), curves["roc"],
-                allow_pickle=True)
-        _plot("ROC plot", "plot_roc", curves["roc"], eval_pc["diff_AUC"],
-              os.path.join(eval_dir, "rocPC.png"))
+        if writes:
+            np.save(os.path.join(eval_dir, "rocPC.npy"), curves["roc"],
+                    allow_pickle=True)
+            _plot("ROC plot", "plot_roc", curves["roc"], eval_pc["diff_AUC"],
+                  os.path.join(eval_dir, "rocPC.png"))
     if options.computePRC:
         eval_pc["diff_AUPRC"] = float(summary["ap"])
-        np.save(os.path.join(eval_dir, "prcPC.npy"), curves["prc"],
-                allow_pickle=True)
-        _plot("PRC plot", "plot_prc", curves["prc"], eval_pc["diff_AUPRC"],
-              os.path.join(eval_dir, "prcPC.png"))
-    _plot("Dice curve plot", "plot_dice_curve", curves["dice_curve"],
-          eval_pc["bestDiceScore"], eval_pc["bestThreshold"],
-          os.path.join(eval_dir, "dicePC.png"))
+        if writes:
+            np.save(os.path.join(eval_dir, "prcPC.npy"), curves["prc"],
+                    allow_pickle=True)
+            _plot("PRC plot", "plot_prc", curves["prc"],
+                  eval_pc["diff_AUPRC"], os.path.join(eval_dir, "prcPC.png"))
+    if writes:
+        _plot("Dice curve plot", "plot_dice_curve", curves["dice_curve"],
+              eval_pc["bestDiceScore"], eval_pc["bestThreshold"],
+              os.path.join(eval_dir, "dicePC.png"))
     print(f"Curves done in {time.time() - t0:.2f}s "
           f"(AUC={eval_pc.get('diff_AUC', float('nan')):.4f} "
           f"AUPRC={eval_pc.get('diff_AUPRC', float('nan')):.4f} "
@@ -581,7 +601,7 @@ def evaluate(dataset, trainer, options: Options, config: Config,
     eval_pc["TPRCC"] = tpcc / (tpcc + fncc) if (tpcc + fncc) > 0 else 0.0
     eval_pc["PrecisionCC"] = tpcc / (tpcc + fpcc) if (tpcc + fpcc) > 0 else 0.0
 
-    if options.exportPNGs:
+    if options.exportPNGs and writes:
         # the variance pictures show the combined predictive variance
         _plot("slice PNGs", "export_slice_images",
               sample_dir, eval_pc["x"], eval_pc["reconstructions"],
@@ -590,7 +610,7 @@ def evaluate(dataset, trainer, options: Options, config: Config,
               raw_diffs=eval_pc.get("raw_diffs"),
               names=eval_pc.get("slice_names"))
 
-    if options.exportVolumes:
+    if options.exportVolumes and writes:
         # residual volumes (+ binary at the operating point) in the source
         # scan's geometry
         start = 0
@@ -609,13 +629,14 @@ def evaluate(dataset, trainer, options: Options, config: Config,
                            "l2reconstructionErrors", "epistemic_variance",
                            "combined_variance", "raw_diffs", "slice_names",
                            "diffHistogram")}
-    np.save(os.path.join(eval_dir, "evalPC.npy"), export)  # type: ignore
-    with open(os.path.join(eval_dir, "evalPC.txt"), "w") as f:
-        f.write(str(export))
-    with open(os.path.join(eval_dir, "evalPC.json"), "w") as f:
-        json.dump(json_sanitize({k: v for k, v in export.items()
-                                 if isinstance(v, (int, float, str, list))}),
-                  f, indent=2)
+    if writes:
+        np.save(os.path.join(eval_dir, "evalPC.npy"), export)  # type: ignore
+        with open(os.path.join(eval_dir, "evalPC.txt"), "w") as f:
+            f.write(str(export))
+        with open(os.path.join(eval_dir, "evalPC.json"), "w") as f:
+            json.dump(json_sanitize(
+                {k: v for k, v in export.items()
+                 if isinstance(v, (int, float, str, list))}), f, indent=2)
     eval_pc["eval_dir"] = eval_dir
     return eval_pc
 
@@ -642,7 +663,7 @@ def determine_threshold_on_labeled_patients(
         if ed["diffs"] is not None and len(ed["diffs"]):
             all_diffs.append(ed["diffs"])
             all_labels.append(ed["labelmaps"])
-            if options.exportPNGs:
+            if options.exportPNGs and _writes(trainer):
                 d_np = ed["diffs"].cpu().numpy()
                 _plot("slice PNGs", "export_slice_images",
                       ds_sample_dir, ed["x"], ed["reconstructions"], d_np,

@@ -47,6 +47,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
+    all_gather_batch,
+    psum,
+)
+
 LEAKY_SLOPE = 0.3  # keras LeakyReLU default alpha
 LEAKY_SLOPE_ZIMMERER = 0.2  # tf.nn.leaky_relu default alpha
 BN_EPS = 1e-3  # tf.layers BatchNormalization default epsilon
@@ -100,19 +105,55 @@ class VolumeGenerators:
         return out
 
 
-RandomSource = Union[torch.Generator, VolumeGenerators]
+class ShardedSource:
+    """One data-parallel rank's share of a random source: the rows
+    ``[start, stop)`` of a global batch whose first ``rows`` rows are real
+    (the rest pads it to a multiple of the ranks).
+
+    Every draw site states its batch as the draw's leading axis, so a
+    non-scalar draw must lead with the shard's rows: it is made for the
+    whole real batch from ``source`` and cut to the shard's rows (padding
+    rows are zero), so every rank advances ``source`` as one process on
+    the whole batch would and its rows get that process's numbers.  A
+    scalar draw is made as asked, the same on every rank; any other shape
+    raises, since it would diverge from the one-process draw."""
+
+    def __init__(self, source: "RandomSource", rows: int, start: int,
+                 stop: int):
+        self.source = source
+        self.rows, self.start, self.stop = int(rows), int(start), int(stop)
+
+    def draw(self, fn: Callable, shape: Sequence[int],
+             device: torch.device) -> torch.Tensor:
+        shape = tuple(shape)
+        if not shape:
+            return draw(fn, self.source, shape, device)
+        if shape[0] != self.stop - self.start:
+            raise ValueError(f"a draw of shape {shape} on a rank's "
+                             f"{self.stop - self.start} rows: a sharded "
+                             "draw is a scalar or leads with the rank's "
+                             "rows")
+        full = draw(fn, self.source, (self.rows,) + shape[1:], device)
+        if self.stop > self.rows:
+            full = torch.cat([full, full.new_zeros(
+                (self.stop - self.rows,) + shape[1:])])
+        return full[self.start:self.stop]
+
+
+RandomSource = Union[torch.Generator, VolumeGenerators, ShardedSource]
 # the noise may also be given: a tensor, or tensors by draw name (the seam)
-Sample = Union[torch.Generator, VolumeGenerators, torch.Tensor,
-               Mapping[str, torch.Tensor]]
+Sample = Union[torch.Generator, VolumeGenerators, ShardedSource,
+               torch.Tensor, Mapping[str, torch.Tensor]]
 
 
 def draw(fn: Callable, source: RandomSource, shape: Sequence[int],
           device: torch.device) -> torch.Tensor:
-    if isinstance(source, VolumeGenerators):
+    if isinstance(source, (VolumeGenerators, ShardedSource)):
         return source.draw(fn, shape, device)
     if isinstance(source, torch.Generator):
         return fn(tuple(shape), generator=source, device=device)
-    raise TypeError(f"expected a torch.Generator or VolumeGenerators, got "
+    raise TypeError(f"expected a torch.Generator, VolumeGenerators or "
+                    f"ShardedSource, got "
                     f"{type(source).__name__} (given noise drives eps only, "
                     "never dropout)")
 
@@ -261,25 +302,89 @@ class Norm(nn.BatchNorm2d):
     In train mode it normalises with the biased batch statistics and moves
     ``running_mean``/``running_var`` towards the *biased* batch mean and
     variance, as Flax does; ``nn.BatchNorm2d`` would move ``running_var``
-    towards the unbiased n/(n-1) variance and drift from the JAX package."""
+    towards the unbiased n/(n-1) variance and drift from the JAX package.
+
+    ``mesh`` (set by a trainer under a data-parallel mesh of more than one
+    rank) makes the train-mode statistics global over the data group, as
+    the JAX package's BatchNorm is under SPMD (``_GlobalBatchNorm``); it
+    is not ``nn.SyncBatchNorm``, whose running variance is the unbiased
+    one."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+        self.mesh = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        if not self.training:
-            return super().forward(xf).to(x.dtype)
-        y = F.batch_norm(xf, None, None, self.weight, self.bias,
-                         training=True, eps=self.eps)
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         with torch.no_grad():
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(BN_MOMENTUM).add_(mean,
                                                      alpha=1.0 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var,
                                                     alpha=1.0 - BN_MOMENTUM)
             self.num_batches_tracked.add_(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if not self.training:
+            return super().forward(xf).to(x.dtype)
+        if self.mesh is not None and self.mesh.parallel:
+            y, mean, var = _GlobalBatchNorm.apply(xf, self.weight, self.bias,
+                                                  self.mesh, self.eps)
+            self._track(mean, var)
+            return y.to(x.dtype)
+        y = F.batch_norm(xf, None, None, self.weight, self.bias,
+                         training=True, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+        self._track(mean, var)
         return y.to(x.dtype)
+
+
+def _channel(t: torch.Tensor) -> torch.Tensor:
+    return t[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of one rank's rows with the statistics of the
+    whole data group's batch.
+
+    Forward: each rank's per-channel count, mean and centred sum of squares
+    are gathered in one collective and combined (Chan's pairwise rule), so
+    the variance does not cancel as E[x^2] - E[x]^2 would.  Backward: the
+    two per-channel sums of the input gradient, sum(dy) and sum(dy * x_hat),
+    are summed over the group in one all-reduce, as in ``SyncBatchNorm``;
+    the rank's weight and bias gradients stay its own, and the trainer's
+    gradient mean over the group completes them.  Returns (y, mean, biased
+    variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mesh, eps):
+        count = x.numel() // x.shape[1]
+        var_l, mean_l = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        parts = all_gather_batch(mesh, torch.stack(
+            [torch.full_like(mean_l, count), mean_l, var_l * count])[None])
+        counts, means, m2s = parts[:, 0], parts[:, 1], parts[:, 2]
+        n = counts.sum(0)
+        mean = (counts * means).sum(0) / n
+        var = (m2s.sum(0) + (counts * torch.square(means - mean)).sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        x_hat = (x - _channel(mean)) * _channel(invstd)
+        ctx.save_for_backward(x_hat, weight, invstd, n)
+        ctx.mesh = mesh
+        ctx.mark_non_differentiable(mean, var)
+        return x_hat * _channel(weight) + _channel(bias), mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, weight, invstd, n = ctx.saved_tensors
+        sum_dy = dy.sum((0, 2, 3))
+        sum_dy_xhat = (dy * x_hat).sum((0, 2, 3))
+        grad_x = None
+        if ctx.needs_input_grad[0]:
+            sums = psum(ctx.mesh, torch.stack([sum_dy, sum_dy_xhat])) / n
+            grad_x = _channel(weight * invstd) * (
+                dy - _channel(sums[0]) - x_hat * _channel(sums[1]))
+        return grad_x, sum_dy_xhat, sum_dy, None, None
 
 
 class SpatialLayerNorm(nn.Module):

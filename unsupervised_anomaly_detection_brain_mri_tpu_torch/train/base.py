@@ -38,6 +38,23 @@ global step, epoch); the newest ``keepCheckpoints`` are kept.  All are
 loaded with ``weights_only=True``.  ``fit`` sets ``epoch`` before each
 TRAIN pass, for the trainers whose step depends on it (``AAE``).
 
+Data parallelism (``mesh=``, a ``parallel.MeshContext`` of more than one
+rank; the JAX package's SPMD mesh): one process per device, each holding
+the whole model (broadcast from rank 0 by ``init_state``).  Every rank
+builds the same pool and the same seeded batch order and runs its
+contiguous ``batchsize / n_data`` rows of each batch; BatchNorm's
+statistics are the whole batch's (``models/layers.py::Norm``); gradients
+are averaged over the ranks in one flat buffer before each optimizer step
+(``parallel.collectives.psum_mean_grads``), and the epoch's metrics before
+early stopping decides; every draw (dropout, eps, context masks, instance
+noise, prior latents) is made for the global batch from the trainer's
+generators and cut to the rank's rows (``ShardedSource``), so a step equals
+the one-process step on the whole batch.  ``reconstruct_device`` and
+``reconstruct_volumes_device`` split their batch (padded by
+``pad_batch_to``) over the ranks and return the whole result on every
+rank.  Rank 0 writes the checkpoints and sidecars; the others wait for it.
+A one-rank mesh runs the one-process path.
+
 Random streams: weights are drawn from a CPU generator seeded with
 ``config.seed`` (Glorot uniform).  Training draws dropout, instance noise
 and context masks from ``generator`` on the trainer's device, seeded with
@@ -67,12 +84,24 @@ from torch import nn
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Options
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
+    Norm,
     Sample,
+    ShardedSource,
     SpatialLayerNorm,
     VolumeGenerators,
+    draw,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.registry import (
     get_model,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
+    all_gather_batch,
+    psum_mean,
+    psum_mean_grads,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.mesh import (
+    MeshContext,
+    pad_batch_to,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
     losses as L,
@@ -127,11 +156,14 @@ class BaseTrainer:
 
     def __init__(self, config: Config, options: Optional[Options] = None,
                  workdir: Optional[str] = None,
-                 device: torch.device | str = "cuda") -> None:
+                 device: torch.device | str = "cuda",
+                 mesh: Optional[MeshContext] = None) -> None:
         self.config = config
         self.options = options or Options()
         self.workdir = workdir
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
@@ -141,6 +173,10 @@ class BaseTrainer:
         self.dtype = dtype_of(config.compute_dtype)
         model, self.spec = get_model(config, self.dtype)
         self.model = model.to(self.device)
+        if self.data_parallel:
+            for module in self.model.modules():
+                if isinstance(module, Norm):
+                    module.mesh = mesh
         def stream(key: str, rng: Optional[str] = None
                    ) -> Optional[torch.Generator]:
             if rng is not None and rng not in self.spec.rngs:
@@ -157,6 +193,32 @@ class BaseTrainer:
         self.history: List[Dict[str, Any]] = []
         self.tv_lambda_value = float(config.tv_lambda)
         self.streamed_last_epoch = False
+
+    @property
+    def data_parallel(self) -> bool:
+        """True under a mesh of more than one rank (a one-rank mesh runs
+        the one-process path)."""
+        return self.mesh is not None and self.mesh.parallel
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes files and logs (rank 0)."""
+        return self.mesh is None or self.mesh.is_writer
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _shard_source(self, source: Optional[Sample], local_rows: int
+                      ) -> Optional[Sample]:
+        """Under a data-parallel mesh, this rank's share of ``source`` for
+        a batch of ``local_rows`` rows per rank (``ShardedSource``); the
+        source itself otherwise."""
+        if not self.data_parallel or source is None:
+            return source
+        start = self.mesh.rank * local_rows
+        return ShardedSource(source, local_rows * self.mesh.n_data, start,
+                             start + local_rows)
 
     # ------------------------------------------------------------------
     # state init
@@ -183,12 +245,15 @@ class BaseTrainer:
                     module.bias.zero_()
                 if hasattr(module, "init_bare_parameters"):
                     module.init_bare_parameters()
+        if self.data_parallel:
+            self.mesh.replicate(self.model)
         self.optimizer = self.make_optimizer()
         self.step = 0
         for k, g in self._streams().items():
             g.manual_seed(self.config.seed + STREAM_SEED_OFFSETS[k])
-        print(f"[{self.__class__.__name__}] {self.config.model}: "
-              f"{count_params(self.model):,} parameters")
+        if self.is_writer:
+            print(f"[{self.__class__.__name__}] {self.config.model}: "
+                  f"{count_params(self.model):,} parameters")
         return self.model
 
     def make_optimizer(self) -> torch.optim.Optimizer:
@@ -204,14 +269,15 @@ class BaseTrainer:
     # ------------------------------------------------------------------
     # steps
 
-    def maybe_add_instance_noise(self, batch: Batch, train: bool) -> Batch:
+    def maybe_add_instance_noise(self, batch: Batch, train: bool,
+                                 source: Optional[Sample] = None) -> Batch:
         """Optional N(0, 0.01) instance noise on training inputs, drawn
-        from the trainer's generator."""
+        from ``source`` (default: the trainer's generator)."""
         if not train or not self.options.addInstanceNoise:
             return batch
         x = batch["x"]
-        noise = torch.randn(x.shape, generator=self.generator,
-                            device=x.device, dtype=x.dtype)
+        noise = draw(torch.randn, source or self.generator, x.shape,
+                     x.device).to(x.dtype)
         return {**batch, "x": x + 0.01 * noise}
 
     def model_inputs(self, batch: Batch, train: bool,
@@ -238,13 +304,18 @@ class BaseTrainer:
         batch statistics) or eval mode (no dropout, running statistics);
         the model's noise from the sample and gp generators in both.
         Returns the outputs and the model's inputs.  Instance noise reaches
-        the model's input only: the losses see the clean batch."""
+        the model's input only: the losses see the clean batch.  Under a
+        data-parallel mesh every draw is made for the global batch and cut
+        to this rank's rows."""
+        n = batch["x"].shape[0]
+        g = self._shard_source(self.generator, n)
         inputs = self.model_inputs(
-            self.maybe_add_instance_noise(batch, train), train)
+            self.maybe_add_instance_noise(batch, train, g), train, g)
         self.model.train(train)
         outputs = self.model(
-            *inputs, dropout_generator=self.generator if train else None,
-            **self._noise(self.sample_generator, self.gp_generator))
+            *inputs, dropout_generator=g if train else None,
+            **self._noise(self._shard_source(self.sample_generator, n),
+                          self._shard_source(self.gp_generator, n)))
         return outputs, inputs
 
     def compute_losses(self, outputs: Dict[str, torch.Tensor],
@@ -265,11 +336,16 @@ class BaseTrainer:
         return {k: v.detach() for k, v in losses.items() if v.ndim == 0}
 
     def train_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        """Forward, backward and one optimizer step."""
+        """Forward, backward and one optimizer step.  Under a data-parallel
+        mesh ``batch`` is this rank's rows, the gradients are averaged over
+        the group before the step, and the returned metrics are the
+        rank's own."""
         outputs, inputs = self.apply_model(batch, train=True)
         losses = self.compute_losses_with_inputs(outputs, batch, inputs)
         self.optimizer.zero_grad(set_to_none=True)
         losses["loss"].backward()
+        if self.data_parallel:
+            psum_mean_grads(self.mesh, self.model.parameters())
         self.optimizer.step()
         self.step += 1
         return self._scalar_metrics(losses)
@@ -318,10 +394,16 @@ class BaseTrainer:
         """One TRAIN or VAL epoch; returns the per-batch metric means as
         device tensors.  A host pool streams: each chunk of
         ``streamPoolChunkBatches`` batches is gathered on the host in batch
-        order, uploaded, and run over local indices."""
+        order, uploaded, and run over local indices.  Under a data-parallel
+        mesh each rank runs its contiguous columns of ``idxs`` (a batch
+        size that does not split over the ranks raises), the means are
+        averaged over the group, and rank 0 logs its own rows' metrics."""
         step = self.train_step if self.check_phase(phase) == "TRAIN" \
             else self.val_step
-        log_n = int(self.options.logEveryNBatches) if phase == "TRAIN" else 0
+        log_n = int(self.options.logEveryNBatches) \
+            if phase == "TRAIN" and self.is_writer else 0
+        if self.data_parallel:
+            idxs = idxs[:, self.mesh.rows(idxs.shape[1])]
         if not isinstance(pool["x"], np.ndarray):
             self.streamed_last_epoch = False
             sums = run_epoch(step, pool, idxs, log_every_n=log_n,
@@ -338,7 +420,12 @@ class BaseTrainer:
                 local = np.arange(flat.size).reshape(rows.shape)
                 sums = run_epoch(step, cpool, local, sums,
                                  log_every_n=log_n, first_step=self.step)
-        return {k: v / len(idxs) for k, v in sums.items()}
+        means = {k: v / len(idxs) for k, v in sums.items()}
+        if self.data_parallel:
+            keys = sorted(means)
+            means = dict(zip(keys, psum_mean(
+                self.mesh, torch.stack([means[k] for k in keys]))))
+        return means
 
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -390,7 +477,7 @@ class BaseTrainer:
                 "training split is empty — check the dataset partition and "
                 "slice range (sliceStart/sliceEnd vs volume depth)")
         n_train = int(train_pool["x"].shape[0])
-        if isinstance(train_pool["x"], np.ndarray):
+        if isinstance(train_pool["x"], np.ndarray) and self.is_writer:
             mb = sum(v.nbytes for v in train_pool.values()) / 2 ** 20
             print(f"[stream-pool] training pool ({mb:.0f} MB) streams in "
                   f"chunks of {self.options.streamPoolChunkBatches} batches")
@@ -420,11 +507,12 @@ class BaseTrainer:
             dt = time.time() - t0
             sps = idxs.size / max(dt, 1e-9)
             tag = self.phase_tag(epoch)
-            print(f"Epoch (train{'' if tag == 'TRAIN' else ' ' + tag}): "
-                  f"[{epoch:3d}] "
-                  + " ".join(f"{k}: {v:.6f}" for k, v in sorted(
-                      metrics.items()))
-                  + f" ({sps:,.0f} slices/s)")
+            if self.is_writer:
+                print(f"Epoch (train{'' if tag == 'TRAIN' else ' ' + tag}): "
+                      f"[{epoch:3d}] "
+                      + " ".join(f"{k}: {v:.6f}" for k, v in sorted(
+                          metrics.items()))
+                      + f" ({sps:,.0f} slices/s)")
             self.history.append({"epoch": epoch, "phase": tag, **metrics})
 
             stop = False
@@ -434,9 +522,10 @@ class BaseTrainer:
                 if vidx.size:
                     vmetrics = {k: float(v) for k, v in self._run_epoch(
                         "VAL", val_pool, vidx).items()}
-                    print(f"Epoch (val):   [{epoch:3d}] "
-                          + " ".join(f"{k}: {v:.6f}"
-                                     for k, v in sorted(vmetrics.items())))
+                    if self.is_writer:
+                        print(f"Epoch (val):   [{epoch:3d}] "
+                              + " ".join(f"{k}: {v:.6f}" for k, v in
+                                         sorted(vmetrics.items())))
                     self.history.append(
                         {"epoch": epoch, "phase": "VAL", **vmetrics})
                     if self.early_stopping_enabled():
@@ -508,10 +597,11 @@ class BaseTrainer:
         print(f"Best lambda: {best} (sweep: {len(lambdas)} lambdas x "
               f"{len(x)} slices x {c.restore_steps} steps in "
               f"{sweep_s:.2f} s)")
-        if self.workdir:
+        if self.workdir and self.is_writer:
             with open(os.path.join(self.workdir, "tv_lambda.json"),
                       "w") as f:
                 json.dump({"tv_lambda_value": best}, f)
+        self._barrier()
         return best
 
     def lambda_sweep_errors(self, x: torch.Tensor, lambdas: torch.Tensor,
@@ -524,16 +614,22 @@ class BaseTrainer:
         device memory stays bounded whatever the size of VAL.  Each pair
         draws its eps from its own generator seeded 0, as each of the JAX
         package's sequential restorations uses ``key(0)``; the objective is
-        per sample, so the errors do not depend on the chunk size."""
+        per sample, so the errors do not depend on the chunk size.  Under a
+        data-parallel mesh the pairs (padded to a multiple of the ranks)
+        are split over the ranks and the errors gathered."""
         c = self.config
         bs = x.shape[0] // n_batches
         pairs = [(lam, b) for lam in range(len(lambdas))
                  for b in range(n_batches)]
+        mine = pairs
+        if self.data_parallel:
+            idx = pad_batch_to(np.arange(len(pairs)), self.mesh.n_data)
+            mine = [pairs[i] for i in idx[self.mesh.rows(len(idx))]]
         per_chunk = max(1, SWEEP_CHUNK_SLICES // bs)
         self.model.eval()
         errs = []
-        for i in range(0, len(pairs), per_chunk):
-            chunk = pairs[i:i + per_chunk]
+        for i in range(0, len(mine), per_chunk):
+            chunk = mine[i:i + per_chunk]
             xs = torch.cat([x[b * bs:(b + 1) * bs] for _, b in chunk])
             lam = lambdas[[lam for lam, _ in chunk]].repeat_interleave(bs)
             source = VolumeGenerators(
@@ -544,6 +640,8 @@ class BaseTrainer:
                 c.restore_steps, source)
             errs.append(L.sum_per_sample(torch.abs(xs - restored)))
         err = torch.cat(errs)
+        if self.data_parallel:
+            err = all_gather_batch(self.mesh, err)[:len(pairs) * bs]
         return err.reshape(len(lambdas), n_batches, bs).sum(2).mean(1)
 
     # ------------------------------------------------------------------
@@ -552,14 +650,21 @@ class BaseTrainer:
     def save_checkpoint(self, epoch: Optional[int] = None) -> str:
         """Write ``<workdir>/torch/model.pt`` and ``<workdir>/config.json``;
         with ``epoch``, also the full checkpoint of that epoch (keeping the
-        newest ``keepCheckpoints``), ``curves.json`` and ``Curves.npy``."""
+        newest ``keepCheckpoints``), ``curves.json`` and ``Curves.npy``.
+        Under a mesh rank 0 writes and the others wait for it."""
         path = os.path.join(self.workdir, CHECKPOINT)
+        if self.is_writer:
+            self._write_checkpoint(path, epoch)
+        self._barrier()
+        return path
+
+    def _write_checkpoint(self, path: str, epoch: Optional[int]) -> None:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         _atomic_save(self.model.state_dict(), path)
         with open(os.path.join(self.workdir, "config.json"), "w") as f:
             f.write(self.config.to_json())
         if epoch is None:
-            return path
+            return
         ckpt_dir = os.path.join(self.workdir, CHECKPOINT_DIR)
         os.makedirs(ckpt_dir, exist_ok=True)
         _atomic_save({
@@ -584,7 +689,6 @@ class BaseTrainer:
                     curves.setdefault(f"{phase}/{k}", []).append(v)
         np.save(os.path.join(self.workdir, "Curves.npy"),
                 np.asarray(curves, dtype=object))
-        return path
 
     def _epoch_checkpoints(self) -> List[tuple]:
         """[(epoch, path)] of the full checkpoints, oldest first."""
@@ -665,7 +769,6 @@ class BaseTrainer:
                           dropout_generator=generator if dropout else None,
                           **self._noise(generator, generator))
 
-    @torch.no_grad()
     def reconstruct_device(self, x: torch.Tensor, dropout: bool = False,
                            generator: Optional[Sample] = None
                            ) -> Dict[str, torch.Tensor]:
@@ -674,9 +777,38 @@ class BaseTrainer:
         dropout masks are drawn from ``generator``, which also draws the
         model's noise and a prior latent (default: a generator seeded 0).
         A tensor (or dict of tensors) given as ``generator`` is the noise
-        itself.  Returns ``reconstruction`` plus every model output."""
+        itself.  Returns ``reconstruction`` plus every model output.
+
+        Under a data-parallel mesh every rank passes the whole batch and
+        gets the whole result: the batch is padded to a multiple of the
+        ranks (``pad_batch_to``), each rank reconstructs its rows with its
+        share of the noise (``ShardedSource``, or its rows of given noise),
+        and the outputs are gathered and cropped."""
         x = self._slices(x)
         generator = self._eval_generator(generator)
+        if not self.data_parallel:
+            return self._reconstruct(x, dropout, generator)
+        B = x.shape[0]
+        idx = pad_batch_to(np.arange(B), self.mesh.n_data)
+        rows = self.mesh.rows(len(idx))
+        mine = torch.as_tensor(idx[rows], device=x.device)
+
+        def shard(noise):
+            if isinstance(noise, torch.Tensor):
+                return noise.to(x.device)[mine]
+            if isinstance(noise, dict):
+                return {k: shard(v) for k, v in noise.items()}
+            return ShardedSource(noise, B, rows.start, rows.stop)
+
+        out = self._reconstruct(x[mine], dropout, shard(generator))
+        return {k: all_gather_batch(self.mesh, v)[:B]
+                if v.ndim and v.shape[0] == len(mine) else v
+                for k, v in out.items()}
+
+    @torch.no_grad()
+    def _reconstruct(self, x: torch.Tensor, dropout: bool,
+                     generator: Sample) -> Dict[str, torch.Tensor]:
+        """``reconstruct_device`` of a batch on this rank's device."""
         outputs = self._call(
             self.model_inputs({"x": x}, train=False, generator=generator),
             dropout, generator)
@@ -738,10 +870,9 @@ class InputRestoration:
                               max(self.tv_lambda_value, 0.0), c.restore_lr,
                               c.restore_steps, generator)
 
-    def reconstruct_device(self, x, dropout=False, generator=None):
+    def _reconstruct(self, x, dropout, generator):
         """The restored input (``tv_lambda`` clamped at 0)."""
-        return {"reconstruction": self._restore(
-            self._slices(x), dropout, self._eval_generator(generator))}
+        return {"reconstruction": self._restore(x, dropout, generator)}
 
     def batched_volume_restoration(self) -> bool:
         return self.config.restore_steps > 0
@@ -757,14 +888,40 @@ class InputRestoration:
         (``VolumeGenerators``), and the objective is per sample, so each
         volume's result equals a ``reconstruct_device`` call on it alone
         with that generator.  Padding slices are restored too and are the
-        caller's to crop."""
+        caller's to crop.
+
+        Under a data-parallel mesh the stack is padded to a multiple of the
+        ranks with copies of its volumes (``pad_batch_to``), each copy
+        drawing from a fresh generator seeded 0; each rank restores its
+        volumes, each with its own generator, so a volume's result does not
+        depend on the rank that restores it, and the stacks are gathered
+        and cropped to K."""
         K, S = vols.shape[:2]
         counts = [S] * K if counts is None else list(counts)
+        generators = list(generators)
+        if not self.data_parallel:
+            return {"reconstruction": self._restore_stack(
+                vols, dropout, generators, counts)}
+        idx = pad_batch_to(np.arange(K), self.mesh.n_data)
+        rows = self.mesh.rows(len(idx))
+        mine = idx[rows]
+        gens = [generators[i] if pos < K else
+                torch.Generator(device=self.device).manual_seed(0)
+                for pos, i in zip(range(rows.start, rows.stop), mine)]
+        local = self._restore_stack(
+            vols[torch.as_tensor(mine, device=vols.device)], dropout, gens,
+            [counts[i] for i in mine])
+        return {"reconstruction": all_gather_batch(self.mesh, local)[:K]}
+
+    def _restore_stack(self, vols: torch.Tensor, dropout: bool,
+                       generators: List[torch.Generator],
+                       counts: List[int]) -> torch.Tensor:
+        K, S = vols.shape[:2]
         source = VolumeGenerators(generators, counts, S)
         flat = vols.reshape((K * S,) + tuple(vols.shape[2:]))
         restored = self._restore(flat.to(self.device, torch.float32),
                                  dropout, source)
-        return {"reconstruction": restored.reshape(vols.shape)}
+        return restored.reshape(vols.shape)
 
 
 class VAE_You(InputRestoration, VAE):
@@ -824,12 +981,10 @@ class CeVAE(BaseTrainer):
         # TRAIN, the clean one in VAL
         return L.cevae_loss(batch["x"], inputs[1], outputs)
 
-    def reconstruct_device(self, x, dropout=False, generator=None):
+    def _reconstruct(self, x, dropout, generator):
         lam = float(self.config.use_gradient_based_restoration)
         if lam <= 0:
-            return super().reconstruct_device(x, dropout, generator)
-        x = self._slices(x)
-        generator = self._eval_generator(generator)
+            return super()._reconstruct(x, dropout, generator)
 
         def outputs_fn(xi: torch.Tensor):
             out = self._call((xi, xi), dropout, generator)
@@ -873,10 +1028,10 @@ class GMVAE(InputRestoration, BaseTrainer):
 
         return outputs_fn
 
-    def reconstruct_device(self, x, dropout=False, generator=None):
+    def _reconstruct(self, x, dropout, generator):
         if self.config.restore_steps <= 0:
-            return BaseTrainer.reconstruct_device(self, x, dropout, generator)
-        return super().reconstruct_device(x, dropout, generator)
+            return BaseTrainer._reconstruct(self, x, dropout, generator)
+        return super()._reconstruct(x, dropout, generator)
 
 
 class GMVAE_spatial(GMVAE):

@@ -58,6 +58,10 @@ import torch
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
     Sample,
+    draw,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
+    psum_mean_grads,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
     losses as L,
@@ -123,10 +127,16 @@ class AdversarialTrainerBase(BaseTrainer):
             group: gan_adam(self.config, [params[n] for n in names])
             for group, names in self.groups.items()})
 
-    def sample_z(self, generator: torch.Generator, n: int) -> Tensor:
+    def sample_z(self, generator: Sample, n: int) -> Tensor:
         """A prior latent, (n, zDim) ~ N(0, 1)."""
-        return torch.randn((n, self.config.zDim), generator=generator,
-                           device=self.device)
+        return draw(torch.randn, generator, (n, self.config.zDim),
+                    self.device)
+
+    def prior_z(self, n: int) -> Tensor:
+        """A training step's prior latent for ``n`` rows, from the
+        trainer's generator (this rank's rows of the global batch's
+        draw under a data-parallel mesh)."""
+        return self.sample_z(self._shard_source(self.generator, n), n)
 
     def model_inputs(self, batch, train, generator: Optional[Sample] = None):
         """The models that take a prior latent get one in every forward
@@ -143,10 +153,12 @@ class AdversarialTrainerBase(BaseTrainer):
         model's draws from the trainer's generators); ``z`` is the prior
         latent of the models that take one."""
         self.model.train()
+        n = batch["x"].shape[0]
         args = (batch["x"], z) if self.spec.takes_prior_z else (batch["x"],)
-        return self.model(*args, dropout_generator=self.generator,
-                          **self._noise(self.sample_generator,
-                                        self.gp_generator))
+        return self.model(
+            *args, dropout_generator=self._shard_source(self.generator, n),
+            **self._noise(self._shard_source(self.sample_generator, n),
+                          self._shard_source(self.gp_generator, n)))
 
     def image_disc_loss(self, outputs, interpolate: str) -> Tensor:
         """WGAN critic loss + the gradient penalty at the image
@@ -173,12 +185,16 @@ class AdversarialTrainerBase(BaseTrainer):
     def update(self, group: str, loss: Tensor) -> None:
         """One step of ``group``'s optimizer on d loss / d group; a
         parameter of the group that the loss does not reach gets a zero
-        gradient (its Adam moments decay, as optax's do)."""
+        gradient (its Adam moments decay, as optax's do).  Under a
+        data-parallel mesh the group's gradients are averaged over the
+        ranks before the step (``autograd.grad`` bypasses DDP's hooks)."""
         opt = self.optimizer[group]
         params = [p for g in opt.param_groups for p in g["params"]]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        if self.data_parallel:
+            psum_mean_grads(self.mesh, params)
         opt.step()
         for p in params:
             p.grad = None
@@ -227,7 +243,7 @@ class AAE(AdversarialTrainerBase):
         disc_loss = torch.zeros((), device=self.device)
         with self.only("disc"):
             for _ in range(self.d_iters):
-                z = self.sample_z(self.generator, n)
+                z = self.prior_z(n)
                 disc_loss = self.disc_loss(self.forward_train(batch, z))
                 self.update("disc", disc_loss)
         metrics["disc_loss"] = disc_loss.detach()
@@ -287,15 +303,13 @@ class FAnoGAN(AdversarialTrainerBase):
             return self._scalar_metrics(losses)
         n = batch["x"].shape[0]
         with self.only("gen"):
-            outputs = self.forward_train(batch,
-                                         self.sample_z(self.generator, n))
+            outputs = self.forward_train(batch, self.prior_z(n))
             gen_loss = L.wgan_gen_loss(outputs["d_"])
             self.update("gen", gen_loss)
         disc_loss = torch.zeros((), device=self.device)
         with self.only("disc"):
             for _ in range(self.d_iters):
-                outputs = self.forward_train(
-                    batch, self.sample_z(self.generator, n))
+                outputs = self.forward_train(batch, self.prior_z(n))
                 disc_loss = self.image_disc_loss(outputs, "x_hat")
                 self.update("disc", disc_loss)
         self.step += 1
