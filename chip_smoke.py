@@ -87,7 +87,21 @@ last line):
      ``compare_training``'s bounds of one process, one AAE batch within
      phase 9d's bounds, ``reconstruct_device`` of 37 slices with MC dropout
      within TOL, and their times; c. the AE preset's step with no mesh and
-     with a one-rank mesh, in turns;
+     with a one-rank mesh, in turns; j. the last features: a. ``--preset AE
+     --synthetic --device cuda --tpu-fast --tb-every-n 4`` through the CLI
+     at the preset's width (1 epoch, 3 evaluations, threshold fit, one
+     median launch per evaluated volume, ``infer``), ``model_dir`` tagged
+     ``_s2d_d2s``, the TensorBoard event files read back (tags, steps,
+     CRCs, grids) without TensorBoard, the s2d/d2s forward card vs CPU
+     within TOL, warm train slices/s with ``--tpu-fast`` and with the
+     parity architecture; b. tensor parallelism, two gloo ranks on this
+     card at dp1 x tp2 (``chip_smoke.py --tp-worker RANK 2 DIR``), AE at
+     128 x 128, batch 128, float32: ``evaluate()`` of one volume (one
+     median launch per rank) and a reconstruction against one process, one
+     step within ``compare_training``'s bounds, its checkpoint restored in
+     one process bit-equal, the step's time beside one process's;
+     c. ``validate-data`` on a BrainWeb-layout phantom tree (exit 0) and on
+     an empty directory (non-zero, with the layout hint);
  10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
@@ -2667,6 +2681,487 @@ def phase_mesh_timings(cudnn_tf32, matmul_tf32):
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 9j: the last features: the space-to-depth stem and depth-to-space
+# head through the CLI (``--tpu-fast``, with TensorBoard), tensor
+# parallelism (two gloo ranks on this card at dp1 x tp2), ``validate-data``
+
+
+TB_EVERY = 4  # --tb-every-n of the --tpu-fast protocol
+TP_MODEL = 2  # the model axis of phase 9j-b's mesh (data 1)
+FAST = dict(spaceToDepthStem=True, depthToSpaceHead=True)
+EVAL_KEYS = ("diff_AUC", "diff_AUPRC", "bestDiceScore", "DiceScore")
+# the one-volume evaluation under tensor parallelism against one process:
+# the reconstructions differ by float32 round-off, so the metrics by less
+EVAL_ATOL = 1e-3
+EVAL_SLICES = (20, 130)  # the CLI's default slice range: 110 slices
+
+
+def _proto_fields(buf):
+    """(field, wire type, value) of a protocol buffer: an int for varint
+    and fixed fields, bytes for length-delimited ones."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.tfrecord import (
+        _read_varint,
+    )
+
+    view, pos = memoryview(buf), 0
+    while pos < len(buf):
+        key, pos = _read_varint(view, pos)
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            value, pos = _read_varint(view, pos)
+        elif wire == 1:
+            value, pos = bytes(view[pos:pos + 8]), pos + 8
+        elif wire == 5:
+            value, pos = bytes(view[pos:pos + 4]), pos + 4
+        elif wire == 2:
+            n, pos = _read_varint(view, pos)
+            value, pos = bytes(view[pos:pos + n]), pos + n
+        else:
+            raise ValueError(f"wire type {wire}")
+        yield field, wire, value
+
+
+def read_events(directory):
+    """The events files of one phase directory, read without TensorBoard
+    (the card machine has none): every record's two masked CRC32Cs are
+    checked, and the ``Event`` protos decoded into ({scalar tag: [(step,
+    value)]}, {image tag: [(step, height, width)]}, file versions)."""
+    import struct
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.tfrecord import (
+        _masked_crc,
+    )
+
+    scalars, images, versions = {}, {}, []
+    for name in sorted(os.listdir(directory)):
+        check("tfevents" in name, f"{directory}: unexpected file {name}")
+        with open(os.path.join(directory, name), "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            header = data[pos:pos + 8]
+            (n,) = struct.unpack("<Q", header)
+            (crc,) = struct.unpack("<I", data[pos + 8:pos + 12])
+            payload = data[pos + 12:pos + 12 + n]
+            (pcrc,) = struct.unpack("<I", data[pos + 12 + n:pos + 16 + n])
+            check(crc == _masked_crc(header) and pcrc == _masked_crc(payload),
+                  f"{name}: bad CRC at byte {pos}")
+            pos += 16 + n
+            step = 0
+            for field, _, value in _proto_fields(payload):
+                if field == 2:
+                    step = value
+                elif field == 3:
+                    versions.append(value.decode())
+                elif field == 5:
+                    for _, _, v in _proto_fields(value):
+                        tag, simple, image = None, None, None
+                        for f2, _, v2 in _proto_fields(v):
+                            if f2 == 1:
+                                tag = v2.decode()
+                            elif f2 == 2:
+                                (simple,) = struct.unpack("<f", v2)
+                            elif f2 == 4:
+                                image = dict((f3, v3) for f3, _, v3 in
+                                             _proto_fields(v2))
+                        if image is not None:
+                            check(image[4][:8] == b"\x89PNG\r\n\x1a\n",
+                                  f"{tag}: not a PNG")
+                            images.setdefault(tag, []).append(
+                                (step, image[1], image[2]))
+                        else:
+                            scalars.setdefault(tag, []).append(
+                                (step, simple))
+    return scalars, images, versions
+
+
+def check_events(wd, config, healthy):
+    """The ``--tb-every-n`` run's event files: in ``logs/train`` the epoch's
+    ``loss`` and ``reconstructionLoss`` at step 0 and every TB_EVERY-th
+    global step's ``batch/`` scalars, each finite, and the grid at all of
+    them (input | reconstruction | L1 side by side: 8 rows of 128 x 384);
+    in ``logs/val`` the VAL epoch's scalars and grid at step 0."""
+    import numpy as np
+
+    n_batches = len(healthy.slices("TRAIN")) // config.batchsize
+    batch_steps = [s for s in range(1, n_batches + 1) if s % TB_EVERY == 0]
+    check(batch_steps, f"{n_batches} TRAIN batches, none logged")
+    want = {"train": ({"loss": [0], "reconstructionLoss": [0],
+                       "batch/loss": batch_steps,
+                       "batch/reconstructionLoss": batch_steps},
+                      sorted([0] + batch_steps))}
+    if len(healthy.slices("VAL")) >= config.batchsize:
+        want["val"] = ({"loss": [0], "reconstructionLoss": [0]}, [0])
+    logs = os.path.join(wd, "logs")
+    check(sorted(os.listdir(logs)) == sorted(want),
+          f"TensorBoard phases {sorted(os.listdir(logs))}")
+    seen = {}
+    for phase, (tags, image_steps) in want.items():
+        scalars, images, versions = read_events(os.path.join(logs, phase))
+        check(versions == ["brain.Event:2"], f"{phase}: versions {versions}")
+        got = {t: [s for s, _ in v] for t, v in scalars.items()}
+        check(got == tags, f"{phase}: scalar steps {got}, expected {tags}")
+        check(all(np.isfinite(v) for ev in scalars.values() for _, v in ev),
+              f"{phase}: non-finite scalars {scalars}")
+        grid = sorted(images.get("reconstruction", []))
+        check([s for s, _, _ in grid] == image_steps
+              and all((h, w) == (8 * config.outputHeight,
+                                 3 * config.outputWidth)
+                      for _, h, w in grid),
+              f"{phase}: image grids {grid}, expected steps {image_steps}")
+        seen[phase] = (sorted(tags), len(grid))
+    return seen
+
+
+def phase_tpu_fast(base, scan, cudnn_tf32, matmul_tf32):
+    """a. ``--preset AE --synthetic --device cuda --tpu-fast --tb-every-n
+    TB_EVERY`` through the CLI at the preset's width (128 x 128, batch 128,
+    zDim 128, bf16; 1 epoch): the protocol's evaluations and threshold fit
+    with one median launch per evaluated volume, ``model_dir`` tagged
+    ``_s2d_d2s``, finite metrics, the event files' tags and steps
+    (``check_events``), then ``infer``; the s2d/d2s AE forward card vs CPU
+    in float32 (TF32 off) within TOL; warm train slices/s with
+    ``--tpu-fast`` and with the parity architecture, in one call.
+    Returns (median launches, forward max|d|, slices/s by label)."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+        Config,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    sub = os.path.join(base, "tpu_fast")
+    os.makedirs(sub)
+    wd, launches, _ = run_protocol(
+        sub, "AE", ("--tpu-fast", "--tb-every-n", str(TB_EVERY)))
+    with open(os.path.join(wd, "config.json")) as f:
+        config = Config.from_json(f.read())
+    tag = config.model_dir("SYNTH")
+    check(config.spaceToDepthStem and config.depthToSpaceHead
+          and f"_{config.model}_s2d_d2s_" in tag,
+          f"--tpu-fast config: stem {config.spaceToDepthStem}, head "
+          f"{config.depthToSpaceHead}, model_dir {tag}")
+    _, _, healthy, _ = lesion_cohort("AE")
+    events = check_events(wd, config, healthy)
+    print(f"[tpu-fast] model_dir {tag}; TensorBoard "
+          + "; ".join(f"{p}: {tags}, {n} grids" for p, (tags, n)
+                      in events.items()))
+    launches += serve_once(wd, scan, os.path.join(sub, "served"))
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = get_trainer("AE")(preset("AE", compute_dtype="float32", **FAST),
+                            device="cpu")
+    cpu.init_state()
+    card = copy.deepcopy(cpu.model).to(DEVICE).eval()
+    cpu.model.eval()
+    size = cpu.config.outputWidth
+    x = torch.rand((8, size, size, 1),
+                   generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        want = cpu.model(x)
+        got = card(x.to(DEVICE))
+    err = max(float((got[k].cpu() - v).abs().max()) for k, v in want.items())
+    check(err <= TOL, f"s2d/d2s AE forward card vs CPU: max|d| {err}")
+    print(f"[tpu-fast] s2d/d2s AE forward, float32, TF32 off, batch 8: "
+          f"card vs CPU max|d| {err:.3e}")
+
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    pool = device_pool(healthy)
+    sps = {}
+    for label, flags in (("AE parity", {}), ("AE --tpu-fast", FAST)):
+        t = get_trainer("AE")(preset("AE", **flags), device=DEVICE)
+        t.init_state()
+        sps[label] = warm_train(t, pool, config.seed, label,
+                                profiled_steps=10)
+    return launches, err, sps
+
+
+def one_volume_cohort():
+    """A lesioned phantom cohort whose TEST split is one volume of the
+    EVAL_SLICES range at the AE preset's width, as the CLI's cohort builds
+    its volumes."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
+        SYNTH,
+        SyntheticOptions,
+    )
+
+    size = ae_float32().outputWidth
+    return SYNTH(SyntheticOptions(
+        numPatients=2, imageSize=size, numSlices=EVAL_SLICES[1] -
+        EVAL_SLICES[0], targetSize=size, withLesions=True, seed=99,
+        partition={"TRAIN": 0.0, "VAL": 0.5, "TEST": 0.5}))
+
+
+def eval_options(base):
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import (
+        Options,
+        PathConfig,
+    )
+
+    return Options(paths=PathConfig(sample_dir=os.path.join(base, "samples")),
+                   sliceStart=EVAL_SLICES[0], sliceEnd=EVAL_SLICES[1],
+                   exportPNGs=False, exportVolumes=False)
+
+
+def tp_worker(rank, world, workdir):
+    """One of the ranks of phase 9j-b, on this card over gloo (run as
+    ``chip_smoke.py --tp-worker RANK WORLD DIR``) at dp1 x tp2: from the
+    whole start state in DIR (cut to the rank's shards), ``evaluate()`` of
+    one volume (its median launches counted) and ``reconstruct_device`` of
+    MESH_RECON_SLICES slices, one float32 AE step of the whole batch, the
+    checkpoint of it (whole tensors, written by rank 0), then the step's
+    warm time.  Writes DIR/tp_RANK.pt."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+        MeshConfig,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        evaluate,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel import (
+        make_mesh,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
+        initialize_multihost,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_multihost(f"file://{os.path.join(workdir, 'init')}", world,
+                         rank, backend="gloo", timeout_s=MESH_TIMEOUT_S)
+    ctx = make_mesh(MeshConfig(data=world // TP_MODEL, model=TP_MODEL),
+                    devices=[DEVICE] * world)
+    config = ae_float32()
+    ae = get_trainer("AE")(config, mesh=ctx,
+                           workdir=os.path.join(workdir, "tp_wd"))
+    ae.init_state()
+    start = torch.load(os.path.join(workdir, "ae_start.pt"),
+                       map_location=DEVICE, weights_only=True)
+    ae._load_model_state(start["model"])
+    ae._load_optimizer_state(start["optimizer"])
+    out = {"layout": (ctx.data_index, ctx.model_index),
+           "sharded": sum(getattr(m, "tp", None) is not None
+                          for m in ae.model.modules()),
+           "layers": sum(hasattr(m, "tp") for m in ae.model.modules())}
+    median.LAUNCHES = 0
+    res = evaluate(one_volume_cohort(), ae, eval_options(workdir), config)
+    out["eval_launches"] = median.LAUNCHES
+    out["eval"] = {k: float(res[k]) for k in EVAL_KEYS}
+    x, rec_x = mesh_inputs()
+    out["recon"] = ae.reconstruct_device(torch.from_numpy(rec_x))[
+        "reconstruction"].cpu()
+    batch = {"x": torch.from_numpy(x).to(DEVICE)}
+    out["loss"] = float(ae.train_step(batch)["loss"])
+    out["state"] = {k: v.to("cpu", copy=True)
+                    for k, v in ae._whole_model_state().items()}
+    ae.save_checkpoint(1)
+    out["step_ms"] = synced_ms(lambda: ae.train_step(batch),
+                               MESH_TIMED_STEPS)
+    torch.save(out, os.path.join(workdir, f"tp_{rank}.pt"))
+    ctx.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_tp_ranks(base):
+    """b. Tensor parallelism: MESH_WORLD ranks on this one card over gloo
+    as a (data 1, model TP_MODEL) mesh (correctness and host round trips,
+    not throughput), against one process on the card, AE at 128 x 128,
+    batch 128, float32, TF32 off:
+      * ``evaluate()`` of one 110-slice volume from the same start state
+        (one median launch per rank) within EVAL_ATOL of one process, and
+        ``reconstruct_device`` of MESH_RECON_SLICES slices within TOL;
+      * Adam's third step within ``compare_training``'s bounds of the
+        one-process step, the ranks' gathered states bit-equal;
+      * the ranks' checkpoint restored in one process bit-equal to their
+        gathered state;
+    and the step's time beside one process's.  Returns (median launches,
+    times)."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        evaluate,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
+        get_trainer,
+    )
+
+    workdir = tempfile.mkdtemp(dir=base)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = ae_float32()
+    x, rec_x = mesh_inputs()
+    ae = get_trainer("AE")(config, device=DEVICE)
+    ae.init_state()
+    for warm in (x[:, ::-1], x[:, :, ::-1]):
+        ae.train_step({"x": torch.from_numpy(warm.copy()).to(DEVICE)})
+    start = {k: v.detach().clone() for k, v in ae.model.state_dict().items()}
+    torch.save({"model": ae.model.state_dict(),
+                "optimizer": ae.optimizer.state_dict()},
+               os.path.join(workdir, "ae_start.pt"))
+    # the one-process references (their median launch is a comparison's,
+    # not counted)
+    saved = median.LAUNCHES
+    res = evaluate(one_volume_cohort(), ae, eval_options(workdir), config)
+    median.LAUNCHES = saved
+    eval_ref = {k: float(res[k]) for k in EVAL_KEYS}
+    rec_ref = ae.reconstruct_device(torch.from_numpy(rec_x))[
+        "reconstruction"].cpu()
+    batch = {"x": torch.from_numpy(x).to(DEVICE)}
+    loss_ref = float(ae.train_step(batch)["loss"])
+    ref = {k: v.to("cpu", copy=True) for k, v in ae.model.state_dict().items()}
+    one_step_ms = synced_ms(lambda: ae.train_step(batch), MESH_TIMED_STEPS)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(MESH_WORLD):
+        log = open(os.path.join(workdir, f"tp_log_{rank}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             str(rank), str(MESH_WORLD), workdir], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    try:
+        codes = [p.wait(timeout=MESH_TIMEOUT_S) for p, _ in procs]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    for rank, code in enumerate(codes):
+        with open(os.path.join(workdir, f"tp_log_{rank}.txt")) as f:
+            text = f.read()
+        check(code == 0, f"tp rank {rank} exited {code}: {text[-3000:]}")
+    outs = [torch.load(os.path.join(workdir, f"tp_{r}.pt"),
+                       weights_only=False) for r in range(MESH_WORLD)]
+    check([o["layout"] for o in outs] == [(0, m) for m in range(TP_MODEL)],
+          f"mesh layout {[o['layout'] for o in outs]}")
+    print(f"[tp] {MESH_WORLD} ranks on {DEVICE} over gloo as data 1 x model "
+          f"{TP_MODEL}: {ranks_s:.1f} s wall; {outs[0]['sharded']} of "
+          f"{outs[0]['layers']} conv/dense layers column parallel")
+
+    launches = sum(o["eval_launches"] for o in outs)
+    check(all(o["eval_launches"] == 1 for o in outs),
+          f"median launches per rank {[o['eval_launches'] for o in outs]}")
+    diff = {k: max(abs(o["eval"][k] - v) for o in outs)
+            for k, v in eval_ref.items()}
+    check(max(diff.values()) <= EVAL_ATOL,
+          f"evaluate() under tensor parallelism {outs[0]['eval']} vs one "
+          f"process {eval_ref}")
+    rec_err = max(float((o["recon"] - rec_ref).abs().max()) for o in outs)
+    check(rec_err <= TOL, f"reconstruct_device tp vs one process {rec_err}")
+    print(f"[tp] evaluate() of one {EVAL_SLICES[1] - EVAL_SLICES[0]}-slice "
+          f"volume: {outs[0]['eval']} vs "
+          f"one process {eval_ref} (max|d| {max(diff.values()):.3e}); "
+          f"reconstruct_device of {MESH_RECON_SLICES} slices max|d| "
+          f"{rec_err:.3e}")
+    for k, v in outs[0]["state"].items():
+        check(torch.equal(outs[1]["state"][k], v),
+              f"the ranks' gathered states differ at {k}")
+    a = outs[0]["loss"]
+    check(abs(a - loss_ref) <= TOL * abs(loss_ref),
+          f"AE loss tp {a} vs one process {loss_ref}")
+    _, worst_fed, worst, beyond, frac, upd = compare_training(
+        {k: v.to(DEVICE) for k, v in outs[0]["state"].items()}, ref,
+        {k: v.cpu() for k, v in start.items()}, config, 3)
+    print(f"[tp] AE step 3, float32, batch {MESH_BATCH} on both ranks: loss "
+          f"{a} vs one process {loss_ref}; parameters max|diff| "
+          f"{worst:.3e}, {beyond} elements beyond 1e-5 (largest share in "
+          f"one tensor {frac:.3e}), relative update error {upd:.3e}; "
+          f"BN-fed conv biases max|diff| {worst_fed:.3e}")
+    one = get_trainer("AE")(config, device=DEVICE,
+                            workdir=os.path.join(workdir, "tp_wd"))
+    check(one.restore_training_checkpoint() == 1,
+          "no checkpoint from the tensor-parallel ranks")
+    for k, v in one.model.state_dict().items():
+        check(torch.equal(v.cpu(), outs[0]["state"][k]),
+              f"the tensor-parallel checkpoint loads differently at {k}")
+    times = {"one_step_ms": one_step_ms,
+             "tp_step_ms": max(o["step_ms"] for o in outs)}
+    print(f"[tp] checkpoint of the ranks restored in one process bit-equal; "
+          f"AE float32 step at batch {MESH_BATCH}: one process "
+          f"{one_step_ms:.2f} ms, dp1 x tp{TP_MODEL} on one card "
+          f"{times['tp_step_ms']:.2f} ms (slowest rank, host wall clock, "
+          f"each step synchronised; median of {MESH_TIMED_STEPS})")
+    return launches, times
+
+
+def brainweb_tree(root, size=24, depth=30):
+    """A BrainWeb-layout phantom tree: crisp label groundtruths and two
+    normal and two severe-lesion T2 volumes (MINC1)."""
+    import numpy as np
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.formats import (
+        write_minc1,
+    )
+
+    rng = np.random.default_rng(SEED)
+    gt = os.path.join(root, "groundtruth")
+    os.makedirs(gt)
+    labels = np.zeros((size, size, depth))
+    labels[4:20, 4:20, 5:25] = 3
+    labels[8:16, 8:16, 10:20] = 2
+    labels[0:3] = 7
+    lesions = labels.copy()
+    lesions[10:13, 10:13, 12:16] = 10
+    write_minc1(os.path.join(gt, "normal.mnc.gz"), labels)
+    for sev in ("mild", "moderate", "severe"):
+        write_minc1(os.path.join(gt, f"{sev}_lesions.mnc.gz"), lesions)
+    for folder, tag in (("normal", "normal"),
+                        (os.path.join("lesions", "severe"), "msles3")):
+        os.makedirs(os.path.join(root, folder))
+        for i in range(2):
+            vol = rng.uniform(0, 0.2, (size, size, depth))
+            vol[labels > 0] += 0.5
+            if tag != "normal":
+                vol[lesions == 10] = 1.0
+            write_minc1(os.path.join(root, folder,
+                                     f"t2_{tag}_p{i}_pn0_rf0.mnc.gz"), vol)
+
+
+def phase_validate_data(base):
+    """c. ``validate-data -d BRAINWEB --dir D --deep`` through the CLI on a
+    BrainWeb-layout phantom tree (exit 0, 4 patients) and on an empty
+    directory (a non-zero exit with the layout hint)."""
+    import contextlib
+    import io
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+
+    root = tempfile.mkdtemp(dir=base)
+    tree, empty = os.path.join(root, "bw"), os.path.join(root, "empty")
+    os.makedirs(empty)
+    brainweb_tree(tree)
+    rcs, texts = [], []
+    for d in (tree, empty):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs.append(cli.main(["validate-data", "-d", "BRAINWEB", "--dir",
+                                 d, "--deep"]))
+        texts.append(buf.getvalue())
+    check(rcs[0] == 0 and "[OK] BRAINWEB" in texts[0]
+          and "patients discovered: 4" in texts[0],
+          f"validate-data on the tree: rc {rcs[0]}\n{texts[0]}")
+    check(rcs[1] != 0 and "expected layout" in texts[1],
+          f"validate-data on an empty directory: rc {rcs[1]}\n{texts[1]}")
+    print(f"[validate-data] BrainWeb phantom tree: exit {rcs[0]}, "
+          + texts[0].strip().replace("\n", " |") + f"; empty directory: "
+          f"exit {rcs[1]}")
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -2691,9 +3186,12 @@ def timed_phase(name, fn, *args):
 def main():
     import torch
 
-    if len(sys.argv) == 5 and sys.argv[1] == "--rank-worker":
+    if len(sys.argv) == 5 and sys.argv[1] in ("--rank-worker",
+                                              "--tp-worker"):
         sys.path.insert(0, ROOT)
-        rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        worker = rank_worker if sys.argv[1] == "--rank-worker" \
+            else tp_worker
+        worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         return
 
     if not torch.cuda.is_available():
@@ -2762,6 +3260,17 @@ def main():
         launches += mesh_launches
         mesh1_ms = timed_phase("9i-c mesh 1 step timings",
                                phase_mesh_timings, *tf32)
+        fast_launches, fast_err, fast_sps = timed_phase(
+            "9j-a AE --tpu-fast through the CLI", phase_tpu_fast, tmp,
+            scans[0], *tf32)
+        launches += fast_launches
+        tp_launches, tp_times = timed_phase(
+            "9j-b tensor parallel, 2 ranks on one card (gloo)",
+            phase_tp_ranks, tmp)
+        launches += tp_launches
+        timed_phase("9j-c validate-data", phase_validate_data, tmp)
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2816,6 +3325,13 @@ def main():
           f"{mesh_times['sharded_median_ms']:.3f} ms (slab kernel "
           f"{mesh_times['slab_kernel_ms']:.4f} ms); median launches "
           f"{launches} in all")
+    print(f"[summary] last features: warm AE train "
+          + ", ".join(f"{k} {v:.1f} slices/s (device busy "
+                      f"{100 * busy[k + ' train']:.1f} %)"
+                      for k, v in fast_sps.items())
+          + f"; s2d/d2s forward card vs CPU max|d| {fast_err:.3e}; AE "
+          f"float32 step one process {tp_times['one_step_ms']:.2f} ms, dp1 x "
+          f"tp{TP_MODEL} on one card {tp_times['tp_step_ms']:.2f} ms")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

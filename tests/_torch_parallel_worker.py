@@ -1,13 +1,17 @@
-"""One rank of the port's data-parallel checks on the CPU over gloo.
+"""One rank of the port's data- and tensor-parallel checks on the CPU over
+gloo.
 
-Run by ``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_
-train.py``, one process per rank:
+Run by ``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_
+train.py`` and ``tests/test_torch_tensor_parallel.py``, one process per
+rank:
 
     python tests/_torch_parallel_worker.py TASK RANK WORLD DIR
 
 The ranks join a gloo group through ``file://DIR/init``, read their inputs
-from ``DIR/inputs.pt`` (written by ``spawn``), run TASK and write what the
-test compares to ``DIR/out_RANK.pt`` (read back by ``collect``).  This
+from ``DIR/inputs.pt`` (written by ``spawn``; its ``mesh`` entry, the
+``MeshConfig`` fields, defaults to a data axis of the world), run TASK and
+write what the test compares to ``DIR/out_RANK.pt`` (read back by
+``collect``).  This
 module imports no JAX and nothing of the JAX package: the tests hold its
 results against the JAX package in their own process.
 """
@@ -113,7 +117,7 @@ def task_basics(ctx, inputs, world):
             ctx, ctx.shard_batch(inputs["vol"])),
         "data_guard": raises(ValueError, make_mesh,
                              MeshConfig(data=world + 1), ["cpu"] * world),
-        "model_guard": raises(NotImplementedError, make_mesh,
+        "model_guard": raises(ValueError, make_mesh,
                               MeshConfig(data=world, model=2),
                               ["cpu"] * world),
         "halo_guard": raises(ValueError, sharded_median_filter_3d, ctx,
@@ -208,7 +212,89 @@ def evaluate_run(ctx, inputs):
     return out
 
 
-TASKS = {"basics": task_basics, "train": task_train}
+def whole_state(trainer):
+    """``trainer_state`` with whole tensors under tensor parallelism: the
+    model's and every optimizer's state gathered over the model group."""
+    out = {f"model.{k}": v.clone() for k, v in
+           trainer._whole_model_state().items()}
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    for group, opt in trainer._optimizers().items():
+        state = trainer._whole_optimizer_state()
+        state = state if group == "" else state[group]
+        order = [names[id(p)] for g in opt.param_groups for p in g["params"]]
+        for i, st in state["state"].items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{group or 'main'}.{order[i]}.{k}"] = st[k].clone()
+    return out
+
+
+def tp_step(name, ctx, inputs):
+    """One train step of trainer ``name`` under the mesh, from the seeded
+    init (or ``inputs[name]['state_dict']``): the whole state after it and
+    the metrics averaged over the data group."""
+    spec = inputs[name]
+    cfg = Config.from_json(spec["config"])
+    tr = get_trainer(cfg.trainer)(cfg, device="cpu", mesh=ctx,
+                                  workdir=spec.get("workdir"))
+    tr.init_state()
+    if "d_iters" in spec:
+        tr.d_iters = spec["d_iters"]
+    metrics = tr.train_step(ctx.shard_batch({"x": spec["x"]}))
+    keys = sorted(metrics)
+    means = psum_mean(ctx, torch.stack([metrics[k] for k in keys]))
+    return tr, {"metrics": dict(zip(keys, means)), "state": whole_state(tr)}
+
+
+def task_tp(ctx, inputs, world):
+    """Tensor parallelism: an ``AE`` step (its checkpoint saved), with the
+    world-2 mesh also an ``AAE`` batch, a one-process checkpoint restored
+    and reconstructed, and ``evaluate()``; the sharded median over the
+    data group."""
+    tr, out = tp_step("AE", ctx, inputs)
+    out = {"AE": out, "layout": (ctx.data_index, ctx.model_index),
+           "tp_layers": sorted(
+        n for n, m in tr.model.named_modules()
+        if getattr(m, "tp", None) is not None),
+        "local_shapes": {n: tuple(p.shape)
+                         for n, p in tr.model.named_parameters()}}
+    tr.save_checkpoint(1)
+    out["median"] = sharded_median_filter_3d(
+        ctx, ctx.shard_batch(inputs["vol"]))
+    if "AAE" not in inputs:
+        return out
+    out["AAE"] = tp_step("AAE", ctx, inputs)[1]
+    spec = inputs["restore"]
+    tr = get_trainer("AE")(Config.from_json(spec["config"]), device="cpu",
+                           mesh=ctx, workdir=spec["workdir"])
+    out["restored_epoch"] = tr.restore_training_checkpoint()
+    out["restored"] = whole_state(tr)
+    out["recon"] = tr.reconstruct_device(spec["x"])["reconstruction"]
+    out["evaluate"] = tp_evaluate(ctx, inputs)
+    return out
+
+
+def tp_evaluate(ctx, inputs):
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
+        SYNTH,
+        SyntheticOptions,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
+        evaluate,
+    )
+
+    spec = inputs["evaluate"]
+    cfg = Config.from_json(spec["config"])
+    tr = get_trainer("AE")(cfg, device="cpu", mesh=ctx)
+    tr._load_model_state(spec["eval_state"])
+    opts = Options(**spec["options"])
+    opts.paths.sample_dir = spec["sample_dir"]
+    res = evaluate(SYNTH(SyntheticOptions(**spec["eval_ds"])), tr, opts,
+                   cfg)
+    return {"metrics": {k: res[k] for k in spec["keys"]},
+            "diffs": torch.from_numpy(np.asarray(res["diffs"]))}
+
+
+TASKS = {"basics": task_basics, "train": task_train, "tp": task_tp}
 
 
 def spawn(task, world, workdir, inputs, port=None):
@@ -272,7 +358,8 @@ def main():
     inputs["init"] = os.path.join(workdir, "init")
     initialize_multihost(f"file://{inputs['init']}", world, rank,
                          backend="gloo", timeout_s=120)
-    ctx = make_mesh(MeshConfig(data=world), devices=["cpu"] * world)
+    ctx = make_mesh(MeshConfig(**inputs.get("mesh", {"data": world})),
+                    devices=["cpu"] * world)
     out = TASKS[task](ctx, inputs, world)
     torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
     ctx.barrier()

@@ -177,14 +177,28 @@ def test_cuda_without_a_card_raises(tmp_path):
 @pytest.mark.parametrize("flag", [["--tpu-fast"], ["--s2d-stem"],
                                   ["--d2s-head"], ["--mesh-data", "2"],
                                   ["--tb-every-n", "5"]])
-def test_unported_flags_raise(flag, tmp_path):
-    """Each flag raises before anything is written.  ``--mesh-data`` is
-    ported: without a process group of 2 ranks, ``--mesh-data 2`` raises
-    that the group has 1."""
-    err, match = NotImplementedError, "not yet ported"
+def test_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """Every flag of the JAX CLI is ported.  ``--mesh-data 2`` without a
+    process group of 2 ranks raises that the group has 1, before anything
+    is written; the others reach the config and options that the protocol
+    gets, as the JAX CLI sets them."""
     if flag[0] == "--mesh-data":
-        err, match = ValueError, "process group has 1 rank"
-    with pytest.raises(err, match=match):
-        cli.main(["--synthetic", *SMALL, "--device", "cpu", "--workdir",
-                  str(tmp_path), *flag])
-    assert not os.listdir(tmp_path)
+        with pytest.raises(ValueError, match="process group has 1 rank"):
+            cli.main(["--synthetic", *SMALL, "--device", "cpu", "--workdir",
+                      str(tmp_path), *flag])
+        assert not os.listdir(tmp_path)
+        return
+    seen = {}
+    monkeypatch.setattr(cli, "_train_protocol",
+                        lambda args, config, options, *a: seen.update(
+                            config=config, options=options) or 0)
+    assert cli.main(["--synthetic", *SMALL, "--device", "cpu", "--workdir",
+                     str(tmp_path), *flag]) == 0
+    config, options = seen["config"], seen["options"]
+    assert config.spaceToDepthStem == (flag[0] in ("--tpu-fast",
+                                                   "--s2d-stem"))
+    assert config.depthToSpaceHead == (flag[0] in ("--tpu-fast",
+                                                   "--d2s-head"))
+    assert options.tensorboard == (flag[0] == "--tb-every-n")
+    assert options.tbEveryNBatches == (5 if flag[0] == "--tb-every-n"
+                                       else 0)

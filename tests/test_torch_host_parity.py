@@ -98,6 +98,7 @@ COPIES = [
     ("data/brainweb.py", True, ()),
     ("data/ms_datasets.py", True, ()),
     ("eval/artifacts.py", True, ()),
+    ("data/validate.py", True, ()),
 ]
 
 

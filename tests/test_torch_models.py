@@ -181,8 +181,16 @@ def test_bfloat16_compute_keeps_float32_params_and_output():
 
 @pytest.mark.parametrize("field", ["spaceToDepthStem", "depthToSpaceHead"])
 def test_non_parity_options_raise(field):
-    with pytest.raises(NotImplementedError):
-        get_model(_config(32).replace(**{field: True}))
+    """The non-parity options are ported: each builds its layer under its
+    Flax name (``tests/test_torch_s2d.py`` holds them against JAX) and no
+    longer raises."""
+    model, _ = get_model(_config(32).replace(**{field: True}))
+    name = {"spaceToDepthStem": "encoder.enc_conv_0_s2d",
+            "depthToSpaceHead": "decoder.dec_conv_d2s_head"}[field]
+    assert name in dict(model.named_modules())
+    with torch.no_grad():
+        out = model.eval()(torch.rand(2, 32, 32, 1))
+    assert out["x_hat"].shape == (2, 32, 32, 1)
 
 
 @pytest.mark.parametrize("name", ["constrained_adversarial_autoencoder_Chen",

@@ -111,8 +111,9 @@ def test_collectives_match_numpy(basics):
 
 
 def test_guards_raise_on_every_rank(basics):
-    """``make_mesh`` refuses data != world size and model > 1; the sharded
-    median refuses a shard of fewer slices than its halo."""
+    """``make_mesh`` refuses data != world size and data x model !=
+    world size; the sharded median refuses a shard of fewer slices than
+    its halo."""
     for out in basics[2]:
         assert out["data_guard"] and out["model_guard"] and out["halo_guard"]
 
@@ -238,7 +239,8 @@ def test_sharded_source_draws_the_ranks_rows_of_the_whole_batch():
 def test_make_mesh_guards_in_one_process():
     """Without a process group the world is this process: data=1 (or
     None) is a one-rank mesh that issues no collective; data=2 raises;
-    model > 1 raises NotImplementedError naming the ROADMAP item; the
+    model=2 raises, since data x model must be the world size (tensor
+    parallelism is ported: ``tests/test_torch_tensor_parallel.py``); the
     default devices need a card."""
     ctx = make_mesh(MeshConfig(data=1), devices=["cpu"])
     assert (ctx.n_data, ctx.n_model, ctx.rank, ctx.parallel) == (1, 1, 0,
@@ -246,7 +248,7 @@ def test_make_mesh_guards_in_one_process():
     assert make_mesh(MeshConfig(), devices=["cpu"]).n_data == 1
     with pytest.raises(ValueError, match="process group has 1"):
         make_mesh(MeshConfig(data=2), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue item"):
+    with pytest.raises(ValueError, match="model=2"):
         make_mesh(MeshConfig(data=1, model=2), devices=["cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

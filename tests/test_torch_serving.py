@@ -278,8 +278,15 @@ def test_infer_cli_matches_jax_cli(jax_workdir, tmp_path):
 
 
 def test_cli_training_subcommands_are_not_yet_ported(capsys):
-    assert cli.main(["validate-data"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """Every subcommand of the JAX CLI is ported: ``validate-data`` with
+    no arguments checks every dataset root of the default paths and
+    reports and exits as the JAX CLI does
+    (``tests/test_torch_validate_data.py`` holds it on real trees)."""
+    rc = cli.main(["validate-data"])
+    ours = capsys.readouterr().out
+    assert rc == jax_cli.main(["validate-data"])
+    assert ours == capsys.readouterr().out
+    assert "BRAINWEB" in ours and "MSSEG2008" in ours
 
 
 def test_cli_cuda_without_a_card_raises(converted, tmp_path):

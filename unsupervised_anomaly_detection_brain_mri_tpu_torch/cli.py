@@ -1,5 +1,5 @@
 """Command-line interface of the port: training with the evaluation
-protocol, and ``infer``.
+protocol, ``infer`` and ``validate-data``.
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/cli.py`.
 ``build_dataset``, ``CLI_DEFAULTS`` and ``make_parser`` are copies of that
@@ -16,11 +16,19 @@ Training runs the JAX CLI's protocol: ``fit``, best-Dice ``evaluate()``
 without and with the hyperintensity prior, the threshold fitted on the
 lesion cohort's VAL split (written to ``calibration.json``), and
 ``evaluate()`` again at that threshold; ``--metrics-out`` collects one
-JSON row per evaluation.  The port always runs the parity architecture:
-``--parity`` and ``--fast-convt-grad`` are accepted and change nothing;
-``--tpu-fast``, ``--s2d-stem``, ``--d2s-head`` (ROADMAP.md queue item 4)
-and ``--tb-every-n`` (item 3) raise ``NotImplementedError``.
-``validate-data`` is not ported yet (item 3; exit status 2).
+JSON row per evaluation.  ``--tb-every-n N`` writes TensorBoard event
+files under ``<workdir>/logs/{train,val}`` (``utils/logger.py``): each
+epoch's scalars and image grid, and every N-th batch's.
+
+The architecture is the reference's by default (``resolve_tpu_fast``: the
+backend is never a TPU here).  ``--tpu-fast`` turns on both non-parity
+options, the space-to-depth stem and the depth-to-space head; ``--s2d-stem``
+and ``--d2s-head`` turn on one each; ``--parity`` with ``--tpu-fast``
+exits.  ``--fast-convt-grad`` is accepted and changes nothing (it selects
+a gradient rule of XLA's transposed convolution).
+
+``validate-data`` checks a dataset directory's layout without loading it
+(``data/validate.py``), with the JAX CLI's flags, report and exit codes.
 
 ``--mesh-data N`` trains, evaluates and calibrates data-parallel on N
 ranks, one process per device (``parallel/``), started by ``torchrun``:
@@ -247,6 +255,75 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
+def resolve_tpu_fast(tpu_fast: Optional[bool], parity: bool) -> bool:
+    """The execution profile: True for the fast profile (space-to-depth
+    stem and depth-to-space head), False for the reference-parity
+    architecture.  ``--parity`` and ``--tpu-fast`` together exit; an
+    explicit ``--tpu-fast`` wins; otherwise the JAX CLI picks the fast
+    profile on a TPU backend only, and the port never runs on one, so the
+    default is parity."""
+    if parity and tpu_fast:
+        raise SystemExit("--parity and --tpu-fast are mutually exclusive")
+    if parity:
+        return False
+    return bool(tpu_fast)
+
+
+def validate_data_main(argv: Optional[List[str]] = None) -> int:
+    """``validate-data`` subcommand: dry-run patient discovery with
+    actionable errors (no cache build, no training)."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.validate import (
+        format_report,
+        validate_dataset_dir,
+    )
+
+    p = argparse.ArgumentParser(
+        prog="validate-data",
+        description="Check dataset directory layouts before a real run")
+    p.add_argument("-c", "--config", default=None, type=str,
+                   help="config-path (JSON path roots); validates every "
+                        "dataset root it names")
+    p.add_argument("-d", "--ds", default=None, type=str,
+                   help="dataset to validate (BRAINWEB, MSLUB, "
+                        "MSISBI2015, MSSEG2008)")
+    p.add_argument("--dir", default=None, type=str,
+                   help="dataset directory (overrides the config root)")
+    p.add_argument("--protocol", action="append", default=None,
+                   help="protocol filter (repeatable), e.g. FLAIR")
+    p.add_argument("--format", default="raw", choices=("raw", "aligned"))
+    p.add_argument("--deep", action="store_true",
+                   help="additionally load the first patient's volumes")
+    args = p.parse_args(argv)
+
+    paths = (PathConfig.from_json(args.config) if args.config
+             else PathConfig())
+    roots = {
+        "BRAINWEB": paths.brainweb_dir,
+        "MSLUB": paths.mslub_dir,
+        "MSISBI2015": paths.msisbi2015_dir,
+        "MSSEG2008": paths.msseg2008_dir,
+    }
+    if args.ds:
+        name = args.ds.upper()
+        if name not in roots:
+            p.error(f"unknown dataset {args.ds!r} "
+                    f"(choose from {', '.join(sorted(roots))})")
+        targets = {name: args.dir or roots[name]}
+    elif args.dir:
+        p.error("--dir requires --ds to name the dataset")
+    else:
+        targets = roots
+    rc = 0
+    for kind, directory in targets.items():
+        report = validate_dataset_dir(
+            kind, str(directory), protocols=args.protocol, fmt=args.format,
+            deep=args.deep)
+        print(format_report(report))
+        if not report["ok"]:
+            rc = 1
+    return rc
+
+
 def _scan_stem(path: str) -> str:
     name = os.path.basename(path)
     for ext in (".nii.gz", ".mnc.gz", ".nii", ".mnc", ".nrrd", ".nhdr"):
@@ -381,17 +458,6 @@ def infer_main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-# flags of the JAX CLI that select something the port does not have yet
-_S2D_D2S = "the non-parity s2d/d2s options, ROADMAP.md queue item 4"
-_NOT_PORTED_FLAGS = (
-    ("tpu_fast", "--tpu-fast", _S2D_D2S),
-    ("s2d_stem", "--s2d-stem", _S2D_D2S),
-    ("d2s_head", "--d2s-head", _S2D_D2S),
-    ("tb_every_n", "--tb-every-n", "TensorBoard logging, ROADMAP.md queue "
-                                   "item 3"),
-)
-
-
 def train_main(argv: Optional[List[str]] = None) -> int:
     """Train, evaluate and calibrate, like the JAX CLI's ``main``."""
     parser = make_parser()
@@ -399,10 +465,7 @@ def train_main(argv: Optional[List[str]] = None) -> int:
                         help="torch device to train and evaluate on "
                              "(default: cuda)")
     args = parser.parse_args(argv)
-    for attr, flag, what in _NOT_PORTED_FLAGS:
-        if getattr(args, attr):
-            raise NotImplementedError(
-                f"{flag} is not yet ported to the PyTorch package ({what})")
+    args.tpu_fast = resolve_tpu_fast(args.tpu_fast, args.parity)
 
     import torch
 
@@ -444,6 +507,8 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         c_lambda=args.c_lambda, restore_lr=args.restore_lr,
         restore_steps=args.restore_steps, tv_lambda=args.tv_lambda,
         use_gradient_based_restoration=args.use_gradient_based_restoration,
+        spaceToDepthStem=args.s2d_stem or args.tpu_fast,
+        depthToSpaceHead=args.d2s_head or args.tpu_fast,
         fastConvTGrad=args.fast_convt_grad,
         mesh=MeshConfig(data=args.mesh_data),
     )
@@ -454,9 +519,12 @@ def train_main(argv: Optional[List[str]] = None) -> int:
         config = preset(args.preset)
         config = config.replace(
             **{k: v for k, v in overrides.items() if k in keep})
-        config = config.replace(compute_dtype=args.precision,
-                                fastConvTGrad=args.fast_convt_grad,
-                                mesh=MeshConfig(data=args.mesh_data))
+        config = config.replace(
+            compute_dtype=args.precision,
+            spaceToDepthStem=args.s2d_stem or args.tpu_fast,
+            depthToSpaceHead=args.d2s_head or args.tpu_fast,
+            fastConvTGrad=args.fast_convt_grad,
+            mesh=MeshConfig(data=args.mesh_data))
     else:
         config = Config().replace(**overrides)
     options = Options(paths=paths, sliceStart=args.slices_start,
@@ -467,6 +535,8 @@ def train_main(argv: Optional[List[str]] = None) -> int:
                       erosionIterations=max(
                           1, (12 * args.outputWidth) // 128),
                       logEveryNBatches=args.log_every_n,
+                      tbEveryNBatches=args.tb_every_n,
+                      tensorboard=args.tb_every_n > 0,
                       streamPool=args.stream_pool)
 
     trainer_cls = get_trainer(config.trainer)
@@ -612,8 +682,5 @@ def main(argv: Optional[List[str]] = None) -> int:
     if argv and argv[0] == "infer":
         return infer_main(argv[1:])
     if argv and argv[0] == "validate-data":
-        print("'validate-data' is not yet ported to the PyTorch package "
-              "(ROADMAP.md queue item 3); use unsupervised_anomaly_"
-              "detection_brain_mri_tpu", file=sys.stderr)
-        return 2
+        return validate_data_main(argv[1:])
     return train_main(argv)

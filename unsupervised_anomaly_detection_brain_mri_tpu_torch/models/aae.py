@@ -52,16 +52,20 @@ class _AAECore(nn.Module):
                  dropout_rate: float = 0.1,
                  disc_hidden: Sequence[int] = (50, 50),
                  constrained: bool = False, with_discriminator: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__()
         self.constrained = constrained
         self.with_discriminator = with_discriminator
         self.dropout_rate = dropout_rate
         self.encoder = UnifiedEncoder(
-            image_size, channels, intermediate_resolution, dtype=dtype)
+            image_size, channels, intermediate_resolution, dtype=dtype,
+            space_to_depth_stem=space_to_depth_stem)
         self.decoder = UnifiedDecoder(
             self.encoder.out_channels, image_size, channels,
-            intermediate_resolution, dtype=dtype)
+            intermediate_resolution, dtype=dtype,
+            depth_to_space_head=depth_to_space_head)
         # min(128, 32 * 2^(n - 1)): 128 at intermediate resolution 16
         c = self.encoder.out_channels
         feat = image_size // 2 ** self.encoder.n
@@ -119,9 +123,13 @@ class AdversarialAutoencoder(_AAECore):
     def __init__(self, image_size: int = 128, channels: int = 1,
                  z_dim: int = 128, intermediate_resolution: int = 16,
                  dropout_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__(image_size, channels, z_dim, intermediate_resolution,
-                         dropout_rate, (50, 50), dtype=dtype)
+                         dropout_rate, (50, 50), dtype=dtype,
+                         space_to_depth_stem=space_to_depth_stem,
+                         depth_to_space_head=depth_to_space_head)
 
 
 class ConstrainedAAE(_AAECore):
@@ -130,10 +138,13 @@ class ConstrainedAAE(_AAECore):
     def __init__(self, image_size: int = 128, channels: int = 1,
                  z_dim: int = 128, intermediate_resolution: int = 16,
                  dropout_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__(image_size, channels, z_dim, intermediate_resolution,
                          dropout_rate, (100, 50), constrained=True,
-                         dtype=dtype)
+                         dtype=dtype, space_to_depth_stem=space_to_depth_stem,
+                         depth_to_space_head=depth_to_space_head)
 
 
 class ConstrainedAutoencoder(nn.Module):
@@ -143,12 +154,16 @@ class ConstrainedAutoencoder(nn.Module):
     def __init__(self, image_size: int = 128, channels: int = 1,
                  z_dim: int = 1024, intermediate_resolution: int = 16,
                  dropout_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__()
         self.core = _AAECore(image_size, channels, z_dim,
                              intermediate_resolution, dropout_rate,
                              constrained=True, with_discriminator=False,
-                             dtype=dtype)
+                             dtype=dtype,
+                             space_to_depth_stem=space_to_depth_stem,
+                             depth_to_space_head=depth_to_space_head)
 
     def forward(self, x: Tensor,
                 dropout_generator: Optional[RandomSource] = None,

@@ -31,10 +31,13 @@ class Autoencoder(nn.Module):
     def __init__(self, image_size: int = 128, channels: int = 1,
                  z_dim: int = 128, intermediate_resolution: int = 8,
                  dropout_rate: float = 0.2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__()
         self.encoder = UnifiedEncoder(
-            image_size, channels, intermediate_resolution, dtype=dtype)
+            image_size, channels, intermediate_resolution, dtype=dtype,
+            space_to_depth_stem=space_to_depth_stem)
         self.bottleneck = DenseBottleneck(
             self.encoder.out_channels, image_size // 2 ** self.encoder.n,
             z_dim, dropout_rate,
@@ -42,7 +45,8 @@ class Autoencoder(nn.Module):
             decoder_dropout=False, dtype=dtype)
         self.decoder = UnifiedDecoder(
             self.encoder.out_channels, image_size, channels,
-            intermediate_resolution, dtype=dtype)
+            intermediate_resolution, dtype=dtype,
+            depth_to_space_head=depth_to_space_head)
 
     def forward(self, x: torch.Tensor,
                 dropout_generator: Optional[RandomSource] = None,
@@ -64,14 +68,18 @@ class AutoencoderSpatial(nn.Module):
     def __init__(self, image_size: int = 128, channels: int = 1,
                  z_dim: int = 128, intermediate_resolution: int = 8,
                  dropout_rate: float = 0.2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.encoder = UnifiedEncoder(
-            image_size, channels, intermediate_resolution, dtype=dtype)
+            image_size, channels, intermediate_resolution, dtype=dtype,
+            space_to_depth_stem=space_to_depth_stem)
         self.decoder = UnifiedDecoder(
             self.encoder.out_channels, image_size, channels,
-            intermediate_resolution, dtype=dtype)
+            intermediate_resolution, dtype=dtype,
+            depth_to_space_head=depth_to_space_head)
 
     def forward(self, x: torch.Tensor,
                 dropout_generator: Optional[RandomSource] = None,

@@ -54,11 +54,14 @@ class AnoVAEGAN(nn.Module):
     def __init__(self, image_size: int = 128, channels: int = 1,
                  z_dim: int = 128, intermediate_resolution: int = 8,
                  dropout_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 space_to_depth_stem: bool = False,
+                 depth_to_space_head: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.encoder = UnifiedEncoder(image_size, channels,
-                                      intermediate_resolution, dtype)
+                                      intermediate_resolution, dtype,
+                                      space_to_depth_stem=space_to_depth_stem)
         c = self.encoder.out_channels
         feat = image_size // 2 ** self.encoder.n
         self.reshape = (feat, feat, c // 8)  # NHWC, as Flax
@@ -67,12 +70,12 @@ class AnoVAEGAN(nn.Module):
         self.mu_layer = Linear(feat * feat * (c // 8), z_dim, dtype)
         self.sigma_layer = Linear(feat * feat * (c // 8), z_dim, dtype)
         self.dec_dense = Linear(z_dim, feat * feat * (c // 8), dtype)
-        self.generator = UnifiedDecoder(c, image_size, channels,
-                                        intermediate_resolution, dtype,
-                                        use_batchnorm=False)
-        self.disc_features = UnifiedEncoder(image_size, channels,
-                                            intermediate_resolution, dtype,
-                                            use_batchnorm=False)
+        self.generator = UnifiedDecoder(
+            c, image_size, channels, intermediate_resolution, dtype,
+            use_batchnorm=False, depth_to_space_head=depth_to_space_head)
+        self.disc_features = UnifiedEncoder(
+            image_size, channels, intermediate_resolution, dtype,
+            use_batchnorm=False, space_to_depth_stem=space_to_depth_stem)
         self.disc_dense = Linear(c, 1, dtype)
 
     def generate(self, z: Tensor) -> Tensor:

@@ -21,7 +21,9 @@ its path:
 
 The module's type, not its name, decides: the ResNets' transposed
 convolutions are named ``conv2`` and ``shortcut``, and a 3x3 f -> f kernel
-has the same shape in either layout.
+has the same shape in either layout.  The non-parity ``enc_conv_0_s2d``
+and ``dec_conv_d2s_head`` are plain ``Conv2d``s, so a JAX ``--tpu-fast``
+checkpoint converts the same way.
 
 ``adam_state_from_optax`` carries an ``optax.adam`` state across the same
 way (moments with the parameters' layout transforms), so a JAX run taken

@@ -34,8 +34,15 @@ tensor, or for a model that makes several named draws (the GMVAEs' ``w``,
 seam through which tests and the card-vs-CPU checks feed both sides the
 same numbers; the training and evaluation paths always pass generators.
 
-The space-to-depth stem and the depth-to-space head are not ported yet
-(``models/registry.py`` rejects configs that ask for them).
+The non-parity options of the JAX package's backbone are here too:
+``UnifiedEncoder(space_to_depth_stem=True)`` replaces stage 0 by
+``space_to_depth`` (2x2) and a 3x3 stride-1 SAME conv (``enc_conv_0_s2d``),
+and ``UnifiedDecoder(depth_to_space_head=True)`` replaces the last ConvT
+stage and the 1x1 head by a 3x3 stride-1 SAME conv to ``4 * C_out``
+channels at half resolution (``dec_conv_d2s_head``) and ``depth_to_space``
+(2x2).  Both pack a 2x2 block in the JAX package's (dy, dx, c) order,
+channel ``(dy * 2 + dx) * C + c``; ``F.pixel_unshuffle`` and
+``F.pixel_shuffle`` use (c, dy, dx), which agrees only at C = 1.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ from torch import nn
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
     all_gather_batch,
+    copy_to_model,
+    gather_from_model,
     psum,
 )
 
@@ -209,7 +218,25 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-class Conv2d(nn.Conv2d):
+class _ColumnParallel:
+    """The tensor-parallel form of a layer (``parallel/sharding.py::
+    shard_model`` sets ``tp``, the mesh, and cuts ``weight`` to this
+    rank's rows of the out axis ``tp_dim``): the layer computes its shard
+    of the output channels without the bias, the model group's shards are
+    gathered into the whole output, and the replicated bias is added."""
+
+    tp = None  # the MeshContext of a sharded layer
+    tp_dim = 0  # the weight's out axis
+
+    def _parallel(self, op: Callable, x: torch.Tensor, out_dim: int
+                  ) -> torch.Tensor:
+        y = op(copy_to_model(self.tp, x))
+        y = gather_from_model(self.tp, y, out_dim)
+        bias = self.bias.to(self.compute_dtype)
+        return y + (bias if out_dim == -1 else bias[:, None, None])
+
+
+class Conv2d(_ColumnParallel, nn.Conv2d):
     """Flax ``nn.Conv(padding="SAME")``: TF SAME padding, float32 params,
     compute in ``dtype``."""
 
@@ -226,8 +253,10 @@ class Conv2d(nn.Conv2d):
         x = x.to(self.compute_dtype)
         if any(ph + pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight.to(self.compute_dtype),
-                        self.bias.to(self.compute_dtype), s)
+        w = self.weight.to(self.compute_dtype)
+        if self.tp is not None:
+            return self._parallel(lambda t: F.conv2d(t, w, None, s), x, 1)
+        return F.conv2d(x, w, self.bias.to(self.compute_dtype), s)
 
 
 # (stride, kernel) of the zoo's transposed convolutions, each pinned against
@@ -243,7 +272,7 @@ def convt_same_pads(kernel: int, stride: int) -> Tuple[int, int]:
     return before, total - before
 
 
-class ConvTranspose2d(nn.ConvTranspose2d):
+class ConvTranspose2d(_ColumnParallel, nn.ConvTranspose2d):
     """Flax ``nn.ConvTranspose(padding="SAME")``: output ``stride`` x the
     input.  The weight is torch's (in, out, kh, kw) and holds the Flax
     kernel flipped on both spatial axes.
@@ -265,14 +294,24 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         self.extra = max(after - before, 0)
         self.compute_dtype = dtype
 
+    tp_dim = 1  # the weight is (in, out, kh, kw)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = x.shape[-2:]
         s = self.stride[0]
-        y = F.conv_transpose2d(
-            x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-            self.bias.to(self.compute_dtype), stride=s,
-            padding=self.padding, output_padding=self.extra)
-        return y[..., : s * H, : s * W]
+        w = self.weight.to(self.compute_dtype)
+
+        def convt(t: torch.Tensor, bias: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+            y = F.conv_transpose2d(t, w, bias, stride=s,
+                                   padding=self.padding,
+                                   output_padding=self.extra)
+            return y[..., : s * H, : s * W]
+
+        x = x.to(self.compute_dtype)
+        if self.tp is not None:
+            return self._parallel(lambda t: convt(t, None), x, 1)
+        return convt(x, self.bias.to(self.compute_dtype))
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
@@ -281,7 +320,7 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
-class Linear(nn.Linear):
+class Linear(_ColumnParallel, nn.Linear):
     """Flax ``nn.Dense``: float32 params, compute in ``dtype``."""
 
     def __init__(self, in_features: int, out_features: int,
@@ -290,9 +329,11 @@ class Linear(nn.Linear):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype),
-                        self.bias.to(self.compute_dtype))
+        x = x.to(self.compute_dtype)
+        w = self.weight.to(self.compute_dtype)
+        if self.tp is not None:
+            return self._parallel(lambda t: F.linear(t, w), x, -1)
+        return F.linear(x, w, self.bias.to(self.compute_dtype))
 
 
 class Norm(nn.BatchNorm2d):
@@ -428,20 +469,48 @@ def make_norm(channels: int, use_batchnorm: bool = True) -> nn.Module:
     return Norm(channels) if use_batchnorm else SpatialLayerNorm(channels)
 
 
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C * b * b, H / b, W / b): each b x b block packed
+    into channels in the JAX package's (dy, dx, c) order, channel
+    ``(dy * b + dx) * C + c``."""
+    B, C, H, W = x.shape
+    x = x.reshape(B, C, H // block, block, W // block, block)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(B, C * block * block,
+                                               H // block, W // block)
+
+
+def depth_to_space(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, C * b * b, H, W) -> (B, C, H * b, W * b): the inverse of
+    ``space_to_depth``."""
+    B, C, H, W = x.shape
+    c = C // (block * block)
+    x = x.reshape(B, block, block, c, H, W)
+    return x.permute(0, 3, 4, 1, 5, 2).reshape(B, c, H * block, W * block)
+
+
 class UnifiedEncoder(nn.Module):
     """Strided-conv pyramid down to ``intermediate_resolution``: per stage
-    Conv(k5, s2, SAME, min(128, 32 * 2^i) filters) -> Norm -> LeakyReLU."""
+    Conv(k5, s2, SAME, min(128, 32 * 2^i) filters) -> Norm -> LeakyReLU.
+    ``space_to_depth_stem`` (non-parity) makes stage 0 ``space_to_depth``
+    (2x2) -> Conv(k3, s1, SAME) named ``enc_conv_0_s2d``; same shapes
+    after it."""
 
     def __init__(self, image_width: int, in_channels: int = 1,
                  intermediate_resolution: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 use_batchnorm: bool = True):
+                 use_batchnorm: bool = True,
+                 space_to_depth_stem: bool = False):
         super().__init__()
         self.n = num_scale_stages(image_width, intermediate_resolution)
+        self.s2d_stem = space_to_depth_stem and self.n > 0
         c = in_channels
         for i in range(self.n):
             filters = int(min(128, 32 * (2 ** i)))
-            self.add_module(f"enc_conv_{i}", Conv2d(c, filters, 5, 2, dtype))
+            if i == 0 and self.s2d_stem:
+                self.enc_conv_0_s2d = Conv2d(4 * c, filters, 3, 1, dtype)
+            else:
+                self.add_module(f"enc_conv_{i}",
+                                Conv2d(c, filters, 5, 2, dtype))
             self.add_module(f"enc_norm_{i}", make_norm(filters,
                                                        use_batchnorm))
             c = filters
@@ -449,7 +518,10 @@ class UnifiedEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"enc_conv_{i}")(x)
+            if i == 0 and self.s2d_stem:
+                x = self.enc_conv_0_s2d(space_to_depth(x, 2))
+            else:
+                x = getattr(self, f"enc_conv_{i}")(x)
             x = leaky_relu(getattr(self, f"enc_norm_{i}")(x))
         return x
 
@@ -503,14 +575,19 @@ class DenseBottleneck(nn.Module):
 class UnifiedDecoder(nn.Module):
     """Mirrored pyramid up to ``output_width``: Norm -> ReLU ->
     [ConvT(k5, s2, max(32, 128 / 2^i)) -> Norm -> LeakyReLU] x n ->
-    1x1 conv -> float32."""
+    1x1 conv -> float32.  ``depth_to_space_head`` (non-parity) runs n - 1
+    ConvT stages, then Conv(k3, s1, SAME, 4 * C_out) named
+    ``dec_conv_d2s_head`` at half resolution and ``depth_to_space`` (2x2)."""
 
     def __init__(self, in_channels: int, output_width: int,
                  output_channels: int = 1, intermediate_resolution: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 use_batchnorm: bool = True):
+                 use_batchnorm: bool = True,
+                 depth_to_space_head: bool = False):
         super().__init__()
-        self.n = num_scale_stages(output_width, intermediate_resolution)
+        n = num_scale_stages(output_width, intermediate_resolution)
+        self.d2s_head = depth_to_space_head and n > 0
+        self.n = n - 1 if self.d2s_head else n
         self.dec_norm_in = make_norm(in_channels, use_batchnorm)
         c = in_channels
         for i in range(self.n):
@@ -520,14 +597,22 @@ class UnifiedDecoder(nn.Module):
             self.add_module(f"dec_norm_{i}", make_norm(filters,
                                                        use_batchnorm))
             c = filters
-        self.dec_conv_final = Conv2d(c, output_channels, 1, 1, dtype)
+        if self.d2s_head:
+            self.dec_conv_d2s_head = Conv2d(c, 4 * output_channels, 3, 1,
+                                            dtype)
+        else:
+            self.dec_conv_final = Conv2d(c, output_channels, 1, 1, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.dec_norm_in(x))
         for i in range(self.n):
             x = getattr(self, f"dec_convT_{i}")(x)
             x = leaky_relu(getattr(self, f"dec_norm_{i}")(x))
-        return self.dec_conv_final(x).to(torch.float32)
+        if self.d2s_head:
+            x = depth_to_space(self.dec_conv_d2s_head(x), 2)
+        else:
+            x = self.dec_conv_final(x)
+        return x.to(torch.float32)
 
 
 class MLPDiscriminator(nn.Module):

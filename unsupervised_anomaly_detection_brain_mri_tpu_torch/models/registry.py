@@ -7,14 +7,19 @@ adversarial models, whose forward takes a prior latent), ``takes_context``
 (a second, context-masked input) and ``rngs`` (the random streams the model
 draws: ``dropout``; ``sample`` for the normals of the VAEs and GMVAEs;
 ``gp`` for the critic interpolate's eps).  Every network of the JAX
-registry is ported, in its parity architecture (the ResNets at ``dim``
-64); the non-parity ``spaceToDepthStem``/``depthToSpaceHead`` options raise
-``NotImplementedError``.
+registry is ported (the ResNets at ``dim`` 64).  The non-parity options
+``spaceToDepthStem`` and ``depthToSpaceHead`` reach only the models whose
+constructor takes ``space_to_depth_stem``/``depth_to_space_head`` (the
+unified-backbone AEs, ``VariationalAutoencoder``, the latent-critic AAEs,
+``ConstrainedAutoencoder``, ``FAnoGAN`` and ``AnoVAEGAN``), as the JAX
+package's ``_std`` passes them only to the classes that declare them;
+every other model builds its parity architecture.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -44,7 +49,7 @@ class ModelSpec:
 
 def _std(cls):
     def build(config: Config, dtype: torch.dtype) -> nn.Module:
-        return cls(
+        kwargs = dict(
             image_size=config.outputWidth,
             channels=config.numChannels,
             z_dim=config.zDim,
@@ -52,6 +57,13 @@ def _std(cls):
             dropout_rate=config.dropout_rate,
             dtype=dtype,
         )
+        # the non-parity options, only for the models that take them
+        takes = inspect.signature(cls).parameters
+        if "space_to_depth_stem" in takes and config.spaceToDepthStem:
+            kwargs["space_to_depth_stem"] = True
+        if "depth_to_space_head" in takes and config.depthToSpaceHead:
+            kwargs["depth_to_space_head"] = True
+        return cls(**kwargs)
 
     return build
 
@@ -120,9 +132,5 @@ def get_model(config: Config, dtype: torch.dtype = torch.float32
     if config.model not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown model {config.model!r}; known: {sorted(MODEL_REGISTRY)}")
-    for flag in ("spaceToDepthStem", "depthToSpaceHead"):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"{flag} is not yet ported, see ROADMAP.md")
     spec = MODEL_REGISTRY[config.model]
     return spec.build(config, dtype), spec

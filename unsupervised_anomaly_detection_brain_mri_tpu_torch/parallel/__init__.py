@@ -1,9 +1,8 @@
-"""Data-parallel layer of the port: the mesh (one process per device in a
-``torch.distributed`` group), its collectives and the halo-exchange
-median.
+"""Parallel layer of the port: the (data, model) mesh (one process per
+device in a ``torch.distributed`` group), its collectives, the
+halo-exchange median and tensor parallelism (``sharding.py``).
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/parallel/`.
-Tensor parallelism (the JAX package's ``sharding.py``) is not ported yet.
 """
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -10,13 +10,24 @@ helpers over the default process group, built on ``all_reduce`` and
 its neighbour's part, the one form that both backends take for tensors on
 either device.
 
-Each function takes the ``MeshContext`` first and, on a one-rank mesh,
-returns its input without a collective.  NCCL takes CUDA tensors in every
-collective.  gloo takes CPU tensors, and CUDA tensors in ``all_reduce``,
-``all_gather`` and ``broadcast`` (checked on an H100 by ``chip_smoke.py``
-phase 9i, whose two ranks share one card over gloo).  The collectives here
-are not differentiable: ``models/layers.py::Norm`` wraps its own in an
-``autograd.Function``.
+Each function takes the ``MeshContext`` first and works over its data
+group (the ranks of one model index, ordered by data index); on a one-rank
+data axis it returns its input without a collective.  NCCL takes CUDA
+tensors in every collective.  gloo takes CPU tensors, and CUDA tensors in
+``all_reduce``, ``all_gather`` and ``broadcast`` (checked on an H100 by
+``chip_smoke.py`` phase 9i, whose two ranks share one card over gloo).
+These collectives are not differentiable: ``models/layers.py::Norm`` wraps
+its own in an ``autograd.Function``.
+
+The tensor-parallel layers' pair works over the model group and is
+differentiable: ``copy_to_model`` (identity forward; the input gradient is
+summed over the model group, since each shard contributes its part) and
+``gather_from_model`` (the shards' outputs concatenated along a dimension
+in model-index order; backward keeps this rank's slice of the replicated
+output gradient).  Each backward is itself the other pair's forward
+(sum <-> identity, slice <-> gather), so a gradient taken with
+``create_graph`` (the critics' gradient penalty) differentiates again
+correctly.
 """
 
 from __future__ import annotations
@@ -99,7 +110,7 @@ def psum(ctx: MeshContext, x: Tensor) -> Tensor:
     if not ctx.parallel:
         return x
     y = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=ctx.data_group)
     return y
 
 
@@ -117,15 +128,16 @@ def all_gather_batch(ctx: MeshContext, x: Tensor) -> Tensor:
         return x
     y = x.detach().contiguous()
     parts = [torch.empty_like(y) for _ in range(ctx.n_data)]
-    dist.all_gather(parts, y)
+    dist.all_gather(parts, y, group=ctx.data_group)
     return torch.cat(parts)
 
 
 def _shift(ctx: MeshContext, x: Tensor, step: int) -> Tensor:
-    """Rank r receives rank (r - step)'s ``x``."""
+    """Data index i receives data index (i - step)'s ``x``."""
     if not ctx.parallel:
         return x
-    return all_gather_batch(ctx, x[None])[(ctx.rank - step) % ctx.n_data]
+    return all_gather_batch(ctx, x[None])[(ctx.data_index - step)
+                                          % ctx.n_data]
 
 
 def shift_right(ctx: MeshContext, x: Tensor) -> Tensor:
@@ -140,9 +152,9 @@ def shift_left(ctx: MeshContext, x: Tensor) -> Tensor:
 
 
 def broadcast_(ctx: MeshContext, t: Tensor, src: int = 0) -> Tensor:
-    """Overwrite ``t`` in place with rank ``src``'s."""
+    """Overwrite ``t`` in place with data index ``src``'s."""
     if ctx.parallel:
-        dist.broadcast(t.data, src)
+        dist.broadcast(t.data, ctx.data_rank(src), group=ctx.data_group)
     return t
 
 
@@ -160,3 +172,76 @@ def psum_mean_grads(ctx: MeshContext, params: Iterable[Tensor]) -> None:
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over the model
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceFromModel.apply(grad, ctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model group forward; identity backward (the output is
+    used alike on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=mesh.model_group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _CopyToModel.apply(grad, ctx.mesh), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along ``dim`` over the model group; backward keeps this
+    rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        y = x.contiguous()
+        parts = [torch.empty_like(y) for _ in range(mesh.n_model)]
+        dist.all_gather(parts, y, group=mesh.model_group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _SplitToModel.apply(grad, ctx.mesh, ctx.dim), None, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """This rank's slice along ``dim`` forward; all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        per = x.shape[dim] // mesh.n_model
+        return x.narrow(dim, mesh.model_index * per, per).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherFromModel.apply(grad, ctx.mesh, ctx.dim), None, None
+
+
+def copy_to_model(ctx: MeshContext, x: Tensor) -> Tensor:
+    """A column-parallel layer's input: ``x`` itself, whose gradient is
+    summed over the model group."""
+    return _CopyToModel.apply(x, ctx)
+
+
+def gather_from_model(ctx: MeshContext, x: Tensor, dim: int) -> Tensor:
+    """A column-parallel layer's output: the model group's shards ``x``
+    concatenated along ``dim`` in model-index order."""
+    return _GatherFromModel.apply(x, ctx, dim)

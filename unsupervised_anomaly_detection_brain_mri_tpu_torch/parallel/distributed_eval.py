@@ -2,7 +2,8 @@
 
 Counterpart of `unsupervised_anomaly_detection_brain_mri_tpu/parallel/
 distributed_eval.py`.  The slice axis of a volume is split over the data
-group, each rank holding S/n contiguous slices.  The 5^3 median needs two
+group, each rank holding S/n contiguous slices by its data index (the
+ranks of one model group hold the same shard).  The 5^3 median needs two
 slices beyond each end of a shard: each rank receives them from its
 neighbours (``shift_right``/``shift_left``), and the ranks at the volume's
 ends take the reversed edge slices instead, numpy 'symmetric' as the
@@ -36,7 +37,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.mesh import (
 def sharded_median_filter_3d(ctx: MeshContext, local: torch.Tensor,
                              kernel: int = 5) -> torch.Tensor:
     """The k^3 median of this rank's (S/n, H, W) shard of a volume whose
-    slice axis is split over the data group in rank order
+    slice axis is split over the data group in data-index order
     (``ctx.shard_batch`` of the volume, which raises unless n divides S).
     Each shard must hold at least ``kernel // 2`` slices."""
     r = kernel // 2
@@ -48,7 +49,8 @@ def sharded_median_filter_3d(ctx: MeshContext, local: torch.Tensor,
     # the left neighbour's last r slices, the right neighbour's first r
     from_left = shift_right(ctx, local[-r:])
     from_right = shift_left(ctx, local[:r])
-    left = local[:r].flip(0) if ctx.rank == 0 else from_left
-    right = local[-r:].flip(0) if ctx.rank == ctx.n_data - 1 else from_right
+    left = local[:r].flip(0) if ctx.data_index == 0 else from_left
+    right = (local[-r:].flip(0) if ctx.data_index == ctx.n_data - 1
+             else from_right)
     slab = torch.cat([left, local, right]).contiguous()
     return median_filter_3d_auto(slab, kernel)[r:slab.shape[0] - r]

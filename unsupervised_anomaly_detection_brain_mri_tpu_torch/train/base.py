@@ -55,6 +55,26 @@ the one-process step on the whole batch.  ``reconstruct_device`` and
 rank.  Rank 0 writes the checkpoints and sidecars; the others wait for it.
 A one-rank mesh runs the one-process path.
 
+Tensor parallelism (a mesh with ``n_model`` > 1, reached through the API as
+in the JAX package, whose CLI never sets it): the trainer makes the model's
+wide layers column parallel (``parallel/sharding.py::shard_model``), so
+each rank holds its model index's rows of their weights and of their Adam
+moments, and everything else replicated.  The ranks of one model group
+take the same rows (by their data index: every row split, draw and
+collective above is over the data group), so their activations and draws
+agree; ``init_state`` draws each weight whole and keeps the rank's rows,
+as one process's init would; checkpoints are gathered into whole tensors
+before the writer saves them and cut again on load, so they load the same
+with or without tensor parallelism.
+
+TensorBoard (``Options.tensorboard`` with a workdir): the writer rank
+logs each epoch's metrics per phase and an image grid of the pool's first
+8 slices to ``<workdir>/logs/{train,val}`` (``utils/logger.py``), and with
+``tbEveryNBatches`` = n every n-th global step's metrics as
+``batch/<metric>`` and the grid of the batch's first 8 slices.  The grid's
+eval-mode forward runs on every rank (a tensor-parallel forward is
+collective).
+
 Random streams: weights are drawn from a CPU generator seeded with
 ``config.seed`` (Glorot uniform).  Training draws dropout, instance noise
 and context masks from ``generator`` on the trainer's device, seeded with
@@ -103,6 +123,16 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.mesh import (
     MeshContext,
     pad_batch_to,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.sharding import (
+    count_full_params,
+    cut,
+    gather_like_params,
+    gather_params,
+    shard_like_params,
+    shard_model,
+    shard_params,
+    whole_weight_shape,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
     losses as L,
 )
@@ -120,6 +150,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.restoration import
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.state import (
     make_optimizer,
+)
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils.logger import (
+    Logger,
 )
 
 CHECKPOINT = os.path.join("torch", "model.pt")
@@ -142,8 +175,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 def count_params(model: nn.Module) -> int:
     """Number of trainable parameters (BatchNorm statistics excluded, as in
-    the JAX package's ``count_params`` over ``params``)."""
-    return sum(p.numel() for p in model.parameters())
+    the JAX package's ``count_params`` over ``params``) of the whole model,
+    also when its layers are sharded."""
+    return count_full_params(model)
 
 
 class BaseTrainer:
@@ -167,12 +201,14 @@ class BaseTrainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device "
                                "is available")
-        if self.options.tensorboard or self.options.tbEveryNBatches:
-            raise NotImplementedError(
-                "TensorBoard logging is not yet ported, see ROADMAP.md")
         self.dtype = dtype_of(config.compute_dtype)
         model, self.spec = get_model(config, self.dtype)
         self.model = model.to(self.device)
+        if mesh is not None:
+            shard_model(self.model, mesh)
+        self.tensorboard = bool(self.options.tensorboard and workdir)
+        self.logger = (Logger(os.path.join(workdir, "logs"))
+                       if self.tensorboard and self.is_writer else None)
         if self.data_parallel:
             for module in self.model.modules():
                 if isinstance(module, Norm):
@@ -216,7 +252,7 @@ class BaseTrainer:
         source itself otherwise."""
         if not self.data_parallel or source is None:
             return source
-        start = self.mesh.rank * local_rows
+        start = self.mesh.data_index * local_rows
         return ShardedSource(source, local_rows * self.mesh.n_data, start,
                              start + local_rows)
 
@@ -239,8 +275,12 @@ class BaseTrainer:
                     module.reset_parameters()
                 elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d,
                                          nn.Linear)):
-                    w = torch.empty(module.weight.shape)
+                    # drawn whole, so a sharded layer keeps its rows of
+                    # one process's weight
+                    w = torch.empty(whole_weight_shape(module))
                     nn.init.xavier_uniform_(w, generator=generator)
+                    if getattr(module, "tp", None) is not None:
+                        w = cut(module.tp, w, module.tp_dim)
                     module.weight.copy_(w)
                     module.bias.zero_()
                 if hasattr(module, "init_bare_parameters"):
@@ -402,12 +442,15 @@ class BaseTrainer:
             else self.val_step
         log_n = int(self.options.logEveryNBatches) \
             if phase == "TRAIN" and self.is_writer else 0
+        tb = dict(tb_every=int(self.options.tbEveryNBatches),
+                  tb_hook=self._tb_batch_log) \
+            if phase == "TRAIN" and self.tensorboard else {}
         if self.data_parallel:
             idxs = idxs[:, self.mesh.rows(idxs.shape[1])]
         if not isinstance(pool["x"], np.ndarray):
             self.streamed_last_epoch = False
             sums = run_epoch(step, pool, idxs, log_every_n=log_n,
-                             first_step=self.step)
+                             first_step=self.step, **tb)
         else:
             self.streamed_last_epoch = True
             chunk = max(1, int(self.options.streamPoolChunkBatches))
@@ -419,7 +462,8 @@ class BaseTrainer:
                          for k, v in pool.items()}
                 local = np.arange(flat.size).reshape(rows.shape)
                 sums = run_epoch(step, cpool, local, sums,
-                                 log_every_n=log_n, first_step=self.step)
+                                 log_every_n=log_n, first_step=self.step,
+                                 **tb)
         means = {k: v / len(idxs) for k, v in sums.items()}
         if self.data_parallel:
             keys = sorted(means)
@@ -514,6 +558,7 @@ class BaseTrainer:
                           metrics.items()))
                       + f" ({sps:,.0f} slices/s)")
             self.history.append({"epoch": epoch, "phase": tag, **metrics})
+            self.log_epoch(epoch, "TRAIN", metrics, train_pool)
 
             stop = False
             if val_pool is not None and self.validation_enabled(epoch):
@@ -528,6 +573,7 @@ class BaseTrainer:
                                          sorted(vmetrics.items())))
                     self.history.append(
                         {"epoch": epoch, "phase": "VAL", **vmetrics})
+                    self.log_epoch(epoch, "VAL", vmetrics, val_pool)
                     if self.early_stopping_enabled():
                         best_cost, last_improvement, stop = \
                             early_stopping_update(
@@ -547,6 +593,50 @@ class BaseTrainer:
 
         self.post_fit(dataset)
         return self.model
+
+    def _visual(self, x: torch.Tensor) -> torch.Tensor:
+        """The image grid's reconstruction of slices ``x``: one plain
+        eval-mode forward (a restoration trainer's restore loop is not
+        run), with a generator seeded 0 for the model's draws."""
+        return BaseTrainer._reconstruct(
+            self, x.to(self.device, torch.float32), False,
+            self._eval_generator(None))["reconstruction"]
+
+    def _tb_batch_log(self, step: int, metrics: Dict[str, torch.Tensor],
+                      batch: Batch) -> None:
+        """The mid-epoch TensorBoard summary of global step ``step``: the
+        step's scalars as ``batch/<metric>`` (separate tags from the epoch
+        scalars, whose axis is the epoch) and the grid of the batch's first
+        8 slices.  Under a mesh these are the writer's rows and metrics."""
+        x = batch["x"][:8]
+        rec = self._visual(x)
+        if self.logger is None:
+            return
+        self.logger.log_scalars(step, {f"batch/{k}": float(v)
+                                       for k, v in metrics.items()
+                                       if v.ndim == 0}, "TRAIN")
+        self.logger.log_visuals(step, x.cpu().numpy(), rec.cpu().numpy(),
+                                "TRAIN")
+        self.logger.flush()
+
+    def log_epoch(self, epoch: int, phase: str, metrics: Dict[str, float],
+                  pool: Optional[Batch]) -> None:
+        """TensorBoard epoch logging: the epoch's scalars under ``phase``
+        and the grid of the pool's first 8 slices in eval mode."""
+        if not self.tensorboard:
+            return
+        rec = None
+        if pool is not None and len(pool["x"]):
+            x = pool["x"][:min(8, int(pool["x"].shape[0]))]
+            x = torch.as_tensor(x)
+            rec = self._visual(x)
+        if self.logger is None:
+            return
+        self.logger.log_scalars(epoch, metrics, phase)
+        if rec is not None:
+            self.logger.log_visuals(epoch, x.cpu().numpy(),
+                                    rec.cpu().numpy(), phase)
+        self.logger.flush()
 
     def num_epochs(self) -> int:
         return self.config.numEpochs
@@ -651,16 +741,66 @@ class BaseTrainer:
         """Write ``<workdir>/torch/model.pt`` and ``<workdir>/config.json``;
         with ``epoch``, also the full checkpoint of that epoch (keeping the
         newest ``keepCheckpoints``), ``curves.json`` and ``Curves.npy``.
-        Under a mesh rank 0 writes and the others wait for it."""
+        Under a mesh rank 0 writes and the others wait for it; under tensor
+        parallelism the shards are gathered into whole tensors first."""
         path = os.path.join(self.workdir, CHECKPOINT)
+        model_state = self._whole_model_state()
+        optimizer_state = (self._whole_optimizer_state()
+                           if epoch is not None else None)
         if self.is_writer:
-            self._write_checkpoint(path, epoch)
+            self._write_checkpoint(path, epoch, model_state,
+                                   optimizer_state)
         self._barrier()
         return path
 
-    def _write_checkpoint(self, path: str, epoch: Optional[int]) -> None:
+    def _optimizers(self) -> Dict[str, torch.optim.Optimizer]:
+        """The trainer's optimizers by ``state_dict`` key (one, unnamed, or
+        an ``OptimizerGroup``'s)."""
+        return getattr(self.optimizer, "optimizers", {"": self.optimizer})
+
+    def _tensor_parallel(self) -> bool:
+        return self.mesh is not None and self.mesh.tensor_parallel
+
+    def _whole_model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` with whole tensors (collective under
+        tensor parallelism)."""
+        state = self.model.state_dict()
+        if self._tensor_parallel():
+            state = gather_params(self.mesh, self.model, state)
+        return state
+
+    def _whole_optimizer_state(self) -> Dict[str, Any]:
+        """The optimizer's ``state_dict`` with whole moments (collective
+        under tensor parallelism)."""
+        if not self._tensor_parallel():
+            return self.optimizer.state_dict()
+        states = {k: gather_like_params(self.mesh, self.model, o,
+                                        o.state_dict())
+                  for k, o in self._optimizers().items()}
+        return states[""] if "" in states else states
+
+    def _load_model_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Load whole tensors into the model (cut to this rank's shards
+        under tensor parallelism)."""
+        if self._tensor_parallel():
+            state = shard_params(self.mesh, self.model, state)
+        self.model.load_state_dict(state)
+
+    def _load_optimizer_state(self, state: Dict[str, Any]) -> None:
+        if self._tensor_parallel():
+            opts = self._optimizers()
+            cut = {k: shard_like_params(self.mesh, self.model, o,
+                                        state if k == "" else state[k])
+                   for k, o in opts.items()}
+            state = cut[""] if "" in cut else cut
+        self.optimizer.load_state_dict(state)
+
+    def _write_checkpoint(self, path: str, epoch: Optional[int],
+                          model_state: Dict[str, torch.Tensor],
+                          optimizer_state: Optional[Dict[str, Any]]
+                          ) -> None:
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        _atomic_save(self.model.state_dict(), path)
+        _atomic_save(model_state, path)
         with open(os.path.join(self.workdir, "config.json"), "w") as f:
             f.write(self.config.to_json())
         if epoch is None:
@@ -668,8 +808,8 @@ class BaseTrainer:
         ckpt_dir = os.path.join(self.workdir, CHECKPOINT_DIR)
         os.makedirs(ckpt_dir, exist_ok=True)
         _atomic_save({
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": model_state,
+            "optimizer": optimizer_state,
             **{k: g.get_state() for k, g in self._streams().items()},
             "step": int(self.step),
             "epoch": int(epoch),
@@ -719,7 +859,7 @@ class BaseTrainer:
         if not os.path.isfile(path):
             return None
         state = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state)
+        self._load_model_state(state)
         print(f"Restored checkpoint {path}")
         self._load_tv_lambda()
         return self.model
@@ -734,10 +874,10 @@ class BaseTrainer:
         # CPU first: the generator state must be a CPU ByteTensor; the
         # model and optimizer copy their tensors onto the parameters' device
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        self.model.load_state_dict(ckpt["model"])
+        self._load_model_state(ckpt["model"])
         if self.optimizer is None:
             self.optimizer = self.make_optimizer()
-        self.optimizer.load_state_dict(ckpt["optimizer"])
+        self._load_optimizer_state(ckpt["optimizer"])
         for k, g in self._streams().items():
             g.set_state(ckpt[k])
         self.step = int(ckpt["step"])

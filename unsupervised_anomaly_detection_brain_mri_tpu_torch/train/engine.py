@@ -8,7 +8,9 @@ jitted ``lax.scan`` of ``EpochCompiler``: the slice pool is a device
 tensor, the epoch's (num_batches, batchsize) index matrix is uploaded once,
 each step gathers its batch with ``index_select``, and the per-batch scalar
 metrics are summed on the device, so an epoch syncs with the host once
-(plus once per logged batch).
+(plus once per logged batch).  ``tb_every``/``tb_hook`` take the place of
+``EpochCompiler``'s mid-epoch TensorBoard callback: the hook gets every
+``tb_every``-th global step's number, metrics and batch.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def early_stopping_update(val_loss: float, best_cost: float,
 
 def run_epoch(step: StepFn, pool: Batch, idxs: np.ndarray,
               sums: Optional[Dict[str, torch.Tensor]] = None,
-              log_every_n: int = 0, first_step: int = 0
+              log_every_n: int = 0, first_step: int = 0,
+              tb_every: int = 0, tb_hook: Optional[Callable] = None
               ) -> Dict[str, torch.Tensor]:
     """Run ``step`` on each batch ``pool[idxs[b]]``, in order.
 
@@ -53,7 +56,9 @@ def run_epoch(step: StepFn, pool: Batch, idxs: np.ndarray,
     to ``sums`` when given (a streamed epoch threads one running sum
     through its chunks, so its sums equal the resident pool's bit for
     bit).  With ``log_every_n`` > 0, global steps ``first_step + b + 1``
-    that are multiples of it print their metrics (one host sync each)."""
+    that are multiples of it print their metrics (one host sync each); with
+    ``tb_every`` > 0 those that are multiples of it call
+    ``tb_hook(step, metrics, batch)``."""
     device = next(iter(pool.values())).device
     rows = torch.as_tensor(np.asarray(idxs), dtype=torch.int64).to(device)
     for b in range(rows.shape[0]):
@@ -66,4 +71,7 @@ def run_epoch(step: StepFn, pool: Batch, idxs: np.ndarray,
             msg = " ".join(f"{k}: {float(v):.6f}"
                            for k, v in sorted(metrics.items()))
             print(f"  batch [{step_no:6d}] {msg}", flush=True)
+        if tb_every > 0 and tb_hook is not None \
+                and step_no % tb_every == 0:
+            tb_hook(step_no, metrics, batch)
     return sums
