@@ -101,7 +101,15 @@ last line):
      step within ``compare_training``'s bounds, its checkpoint restored in
      one process bit-equal, the step's time beside one process's;
      c. ``validate-data`` on a BrainWeb-layout phantom tree (exit 0) and on
-     an empty directory (non-zero, with the layout hint);
+     an empty directory (non-zero, with the layout hint); k. the
+     all-preset sweep, ``run_all --device cuda`` at the quality tables'
+     recipe (``--synthetic -E 1 -w 32 -g 32 -s 0 -e 8 -z 16 -b 8 -O 0.5
+     --precision float32``, PyTorch's default TF32 state): all 18 presets
+     with ``--check`` against ``scoreboards/expected_h100.json``, then all
+     18 with ``--tpu-fast`` against ``expected_h100_fast.json``; one median launch per evaluated volume
+     (at the recipe's ``-O 0.5`` the CLI evaluates the TEST volumes once);
+     each preset's wall time and metrics beside the port's CPU table and
+     the JAX tables (the TPU's labelled as such, not targets);
  10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
@@ -146,8 +154,8 @@ WARM_STEPS = 3
 RESTORE_FLIP_STEPS = 10
 # the 150-step CPU restoration of phase 8d runs on the middle slices of
 # its volume (each slice restores on its own): all 110 took 290-460 s, 40
-# took ~110 s
-RESTORE_CHECK_SLICES = 20
+# took ~110 s, 20 ~55 s; 10 since the sweep of phase 9k was added
+RESTORE_CHECK_SLICES = 10
 # the AAE critic's and generator's losses read the train-mode encoder's
 # z_, which one float32 rounding of the state moves ~100x further; they
 # are held to SPREAD_FACTOR x the spread of ROUNDING_RUNS CPU batches from
@@ -3162,6 +3170,113 @@ def phase_validate_data(base):
           f"exit {rcs[1]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9k: the all-preset sweep (``run_all``) at the quality tables'
+# recipe, checked against the port's H100 tables
+
+SWEEP_RECIPE = ("--synthetic", "-E", "1", "-w", "32", "-g", "32", "-s", "0",
+                "-e", "8", "-z", "16", "-b", "8", "-O", "0.5",
+                "--precision", "float32")
+JAX_TABLES = (("JAX CPU", "scoreboard_expected.json"),
+              ("JAX TPU v5e (not a target)", "scoreboard_expected_tpu.json"))
+JAX_FAST_TABLES = (("JAX TPU v5e fast (not a target)",
+                    "scoreboard_expected_tpu_fast.json"),)
+
+
+def sweep_launches(presets):
+    """The median launches a sweep makes, counted from the recipe's lesion
+    cohort as ``run_protocol`` does: with a threshold (``-O``) the CLI
+    evaluates the TEST volumes once at it, otherwise 3 x TEST + VAL."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import (
+        Dataset,
+        Options,
+        build_dataset,
+        preset,
+    )
+
+    recipe = dict(zip(SWEEP_RECIPE[1::2], SWEEP_RECIPE[2::2]))
+    options = Options(sliceStart=int(recipe["-s"]),
+                      sliceEnd=int(recipe["-e"]))
+    total = 0
+    for name in presets:
+        config = preset(name).replace(outputWidth=int(recipe["-w"]),
+                                      outputHeight=int(recipe["-g"]))
+        cohort = build_dataset(options, config, Dataset.SYNTH,
+                               "pathological")
+        n_test = len(cohort.patients_of("TEST"))
+        total += n_test if "-O" in recipe else (
+            3 * n_test + len(cohort.patients_of("VAL")))
+    return total
+
+
+def phase_sweep(base, fast):
+    """k. ``run_all --device cuda`` over the 18 presets at the recipe with
+    ``--check`` against ``expected_h100.json`` (``--tpu-fast``:
+    ``expected_h100_fast.json``); a failed check raises.  The median is
+    launched once per evaluated volume.  Prints each preset's wall time
+    and four metrics, then each beside the port's CPU table and the JAX
+    tables.  Returns (median launches, sweep wall in s)."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import run_all
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
+        EXPERIMENT_PRESETS,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    presets = list(EXPERIMENT_PRESETS)
+    label = "tpu-fast" if fast else "parity"
+    table = os.path.join(run_all.SCOREBOARDS, "expected_h100_fast.json"
+                         if fast else "expected_h100.json")
+    root = tempfile.mkdtemp(dir=base)
+    paths = os.path.join(root, "paths.json")
+    with open(paths, "w") as f:
+        json.dump({"SAMPLEDIR": os.path.join(root, "samples"),
+                   "CHECKPOINTDIR": os.path.join(root, "checkpoints")}, f)
+    board = os.path.join(root, "scoreboard.json")
+    expected = sweep_launches(presets)
+    median.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = run_all.main(["--presets", ",".join(presets), "--scoreboard", board,
+                       "--check", table, *SWEEP_RECIPE, "--device", DEVICE,
+                       "-c", paths, *(["--tpu-fast"] if fast else [])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = median.LAUNCHES
+    check(rc == 0, f"run_all {label} sweep exited {rc} (quality check "
+                   f"against {os.path.relpath(table, ROOT)} or a preset "
+                   "failed)")
+    check(launches == expected, f"{label} sweep: median launched {launches} "
+                                f"times for {expected} evaluated volumes")
+    with open(board) as f:
+        sb = json.load(f)
+    others = [("port CPU" + (" parity" if fast else ""),
+               os.path.join(run_all.SCOREBOARDS, "expected_cpu.json"))]
+    others += [(k, os.path.join(ROOT, "examples", v))
+               for k, v in (JAX_FAST_TABLES if fast else JAX_TABLES)]
+    tables = {}
+    for k, path in others:
+        with open(path) as f:
+            tables[k] = json.load(f)["presets"]
+
+    def fmt(row):
+        return " / ".join("-" if row.get(k) is None else f"{row[k]:.4f}"
+                          for k in run_all.METRIC_KEYS)
+
+    print(f"[sweep {label}] {len(presets)} presets through run_all "
+          f"--device {DEVICE}, checked against "
+          f"{os.path.relpath(table, ROOT)}: {wall:.1f} s; median launches "
+          f"{launches}; metrics AUROC / AUPRC / bestDice / finalTrainLoss")
+    for name in presets:
+        print(f"[sweep {label}] {name}: {sb['_wall_s'][name]:.1f} s; "
+              f"{fmt(sb[name][0])}")
+    for name in presets:
+        print(f"[sweep {label}] {name}: H100 {fmt(sb[name][0])} | "
+              + " | ".join(f"{k} {fmt(t[name])}" for k, t in tables.items()
+                           if name in t))
+    return launches, wall
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -3184,6 +3299,9 @@ def timed_phase(name, fn, *args):
 
 
 def main():
+    # phase 9k's sweep runs deterministic kernels (run_all.reproducible);
+    # cuBLAS reads its workspace setting when the first handle is made
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if len(sys.argv) == 5 and sys.argv[1] in ("--rank-worker",
@@ -3271,6 +3389,14 @@ def main():
         timed_phase("9j-c validate-data", phase_validate_data, tmp)
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
+        sweep_walls = {}
+        for fast in (False, True):
+            sweep_l, sweep_walls["tpu-fast" if fast else "parity"] = \
+                timed_phase(f"9k sweep ({'--tpu-fast' if fast else 'parity'})",
+                            phase_sweep, tmp, fast)
+            launches += sweep_l
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3332,6 +3458,9 @@ def main():
           + f"; s2d/d2s forward card vs CPU max|d| {fast_err:.3e}; AE "
           f"float32 step one process {tp_times['one_step_ms']:.2f} ms, dp1 x "
           f"tp{TP_MODEL} on one card {tp_times['tp_step_ms']:.2f} ms")
+    print(f"[summary] all-preset sweep at the quality tables' recipe: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sweep_walls.items())
+          + "; every preset within the port's H100 tables")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

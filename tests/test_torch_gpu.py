@@ -251,3 +251,23 @@ def test_mc_evaluate_on_card(cuda, tmp_path):
     ev = res["epistemic_variance"]
     assert np.isfinite(ev).all() and (ev > 0).any()
     assert not ev[res["reconstructions"] == 0].any()
+
+
+@pytest.mark.gpu
+def test_run_all_ae_ce_on_card_within_the_h100_table(cuda, tmp_path):
+    """``run_all --presets AE,CE --device cuda`` at the quality tables'
+    recipe, checked against ``scoreboards/expected_h100.json``: exit 0."""
+    import json
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import run_all
+
+    paths = tmp_path / "paths.json"
+    paths.write_text(json.dumps({
+        "CHECKPOINTDIR": str(tmp_path / "checkpoints"),
+        "SAMPLEDIR": str(tmp_path / "samples")}))
+    assert run_all.main([
+        "--presets", "AE,CE", "--check",
+        f"{run_all.SCOREBOARDS}/expected_h100.json", "--synthetic", "-E", "1",
+        "-w", "32", "-g", "32", "-s", "0", "-e", "8", "-z", "16", "-b", "8",
+        "-O", "0.5", "--precision", "float32", "--device", "cuda", "-c",
+        str(paths)]) == 0

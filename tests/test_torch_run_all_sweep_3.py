@@ -1,0 +1,16 @@
+"""The CPU sweep, part 3 of 3: each preset through the port's ``run_all``
+at the quality tables' recipe with ``--device cpu``, checked against the
+port's CPU table, the JAX CPU table and the JAX seed spread
+(``tests/_torch_sweep.py``)."""
+
+import pytest
+
+from _torch_sweep import check_preset, one_torch_thread  # noqa: F401
+
+PRESETS = ("constrainedAAE_Chen", "fAnoGAN_schlegl", "AAE",
+           "constrainedAAE", "ceVAE_Zimmerer", "VAE_Zimmerer")
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_preset_within_the_tables(name, tmp_path):
+    check_preset(name, tmp_path)

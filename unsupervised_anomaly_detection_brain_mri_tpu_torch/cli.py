@@ -458,13 +458,19 @@ def infer_main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
-def train_main(argv: Optional[List[str]] = None) -> int:
-    """Train, evaluate and calibrate, like the JAX CLI's ``main``."""
+def make_train_parser() -> argparse.ArgumentParser:
+    """``make_parser`` with the port's ``--device``: the training CLI's
+    flags."""
     parser = make_parser()
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to train and evaluate on "
                              "(default: cuda)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def train_main(argv: Optional[List[str]] = None) -> int:
+    """Train, evaluate and calibrate, like the JAX CLI's ``main``."""
+    args = make_train_parser().parse_args(argv)
     args.tpu_fast = resolve_tpu_fast(args.tpu_fast, args.parity)
 
     import torch
