@@ -109,7 +109,24 @@ last line):
      18 with ``--tpu-fast`` against ``expected_h100_fast.json``; one median launch per evaluated volume
      (at the recipe's ``-O 0.5`` the CLI evaluates the TEST volumes once);
      each preset's wall time and metrics beside the port's CPU table and
-     the JAX tables (the TPU's labelled as such, not targets);
+     the JAX tables (the TPU's labelled as such, not targets); l. the
+     paper's real-data protocol: a. a fake BrainWeb server, passed as the
+     opener to the port's ``download_brainweb_dataset``, writes BrainWeb's
+     geometry (181x217x181 int16 MINC1, per-slice renormalised, gzipped;
+     normal and msles3 at pn0/pn3/pn5 x rf20 with their crisp
+     groundtruths), and MSLUB (6 patients) and MSISBI2015 (6) are written
+     as NIfTI at 181x217x181 (``tests/_torch_realdata.py``); ``--preset AE
+     -c paths -E 2 --device cuda`` without ``--synthetic`` (128x128, zDim
+     128, slices 20-130, bf16) trains on BRAINWEB healthy, evaluates
+     BRAINWEB, MSLUB and MSISBI2015 without and with the prior, fits the
+     threshold on BRAINWEB VAL and evaluates at it: every metric row
+     present and finite, one median launch per evaluated volume (3 x TEST
+     + VAL, counted from the splits); ``infer --device cuda`` of one
+     MSISBI2015 scan with the calibration (one launch); the train
+     slices/s per epoch, each evaluation's wall split into load, resample,
+     reconstruct, postprocess, curves and components, the served scan's
+     latency; b. the code cells of ``examples/quickstart_torch.ipynb`` on
+     the card, one median launch per evaluated volume;
  10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
@@ -120,6 +137,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 """
 
 import copy
+import importlib
 import json
 import os
 import shutil
@@ -997,9 +1015,8 @@ def warm_evaluate(cohort, trainer, options, config, label):
     ``label + " evaluate"``."""
     import torch
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-        evaluate as E,
-    )
+    E = importlib.import_module(
+        "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
         metrics as M,
     )
@@ -1209,9 +1226,8 @@ def phase_vae_you(base, scan):
     ``restorationVolumeBatch`` volumes), then ``infer``."""
     import torch
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-        evaluate as E,
-    )
+    E = importlib.import_module(
+        "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
         base as B,
     )
@@ -1527,9 +1543,8 @@ def phase_gmvae_spatial(base, scan):
     restoration, then ``infer``."""
     import torch
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-        evaluate as E,
-    )
+    E = importlib.import_module(
+        "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
         base as B,
     )
@@ -3277,6 +3292,360 @@ def phase_sweep(base, fast):
     return launches, wall
 
 
+# ---------------------------------------------------------------------------
+# phase 9l: the paper's real-data protocol (no ``--synthetic``) on
+# real-format cohorts at their real geometry, and the quickstart notebook
+
+# The cohorts are cut in depth to keep the script inside its time limit (a
+# cold build of a real-geometry volume takes 5-7 s on the host, and every
+# evaluation reloads its TEST volumes). BrainWeb: 3 volumes of each phantom
+# (real: 4 noise x 3 INU levels), so healthy TRAIN 2 (220 slices, one batch
+# of 128), VAL 1 and severe VAL 1, TEST 2.
+REAL_PHANTOMS = dict(phantoms=["normal", "msles3"],
+                     noise_levels=("pn0", "pn3", "pn5"), inu_levels=("rf20",))
+REAL_MSLUB = 6  # VAL 5, TEST 1 by DATASET_PARTITIONS' counts (real: 30)
+REAL_MSISBI2015 = 6  # VAL 5, TEST 1 (real: 21 time points)
+REAL_EPOCHS = ("-E", "2")
+REAL_COHORTS = ("Brainweb", "MSLUB", "MSISBI2015")
+
+
+def realdata_module():
+    """``tests/_torch_realdata.py``: the fake BrainWeb server and the MS
+    trees (numpy and scipy only), shared with the CPU tests."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_torch_realdata", os.path.join(ROOT, "tests", "_torch_realdata.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def real_tree(root):
+    """BrainWeb through the port's downloader from the fake server (MINC1,
+    181x217x181 int16, per-slice renormalised, gzipped: normal and msles3
+    at pn0/pn3/pn5 x rf20 with their crisp groundtruths), MSLUB and
+    MSISBI2015 as NIfTI at 181x217x181 (axial axis first), the three in
+    parallel threads; returns the paths file, the fake server and the wall
+    of each part."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.download import (
+        download_brainweb_dataset,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.formats import (
+        write_nifti,
+    )
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    R = realdata_module()
+    dirs = {k: os.path.join(root, k.lower()) for k in ("BRAINWEBDIR",
+                                                      "MSLUBDIR",
+                                                      "MSISBI2015DIR")}
+    server = R.FakeBrainWeb(R.BRAINWEB_SHAPE)
+    parts = {"BrainWeb download": lambda: download_brainweb_dataset(
+                 dirs["BRAINWEBDIR"], opener=server, **REAL_PHANTOMS),
+             "MSLUB": lambda: R.mslub_tree(dirs["MSLUBDIR"], write_nifti,
+                                           REAL_MSLUB),
+             "MSISBI2015": lambda: R.msisbi2015_tree(
+                 dirs["MSISBI2015DIR"], write_nifti, REAL_MSISBI2015)}
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # numpy, zlib and file writes release the GIL: one thread per cohort
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(parts)) as pool:
+        futures = {k: pool.submit(timed, fn) for k, fn in parts.items()}
+    walls = {k: f.result() for k, f in futures.items()}
+    walls["all, in parallel"] = time.perf_counter() - t0
+    paths = os.path.join(root, "paths.json")
+    with open(paths, "w") as f:
+        json.dump(dict(dirs, SAMPLEDIR=os.path.join(root, "samples"),
+                       CHECKPOINTDIR=os.path.join(root, "checkpoints")), f)
+    return paths, server, walls
+
+
+class EvaluateSplit:
+    """Inside the block, times every ``evaluate()`` and threshold fit, each
+    split into load, resample, reconstruct, postprocess (erosion, residual,
+    prior, median), curves and components (each part synchronised; the
+    rest is host work), every ``cli.build_dataset`` (a cold build loads and
+    slices every volume of the cohort; a later one reads the cache) and
+    every TRAIN epoch (synchronised host clock)."""
+
+    PARTS = (("load", "base", "load_volume_and_groundtruth"),
+             ("resample", "E", "_zoom_volume"),
+             ("reconstruct", "E", "_reconstruct_volume"),
+             ("postprocess", "E", "_eroded_mask"),
+             ("postprocess", "E", "_postprocess"),
+             ("curves", "M", "anomaly_curve_summary"),
+             ("components", "P", "filter_small_components"),
+             ("components", "P", "detection_counts_batch"))
+    NAMES = ("load", "resample", "reconstruct", "postprocess", "curves",
+             "components")
+
+    def __init__(self):
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.base import (
+            BaseDataset,
+        )
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+            metrics,
+            postprocess,
+        )
+        from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
+            BaseTrainer,
+        )
+
+        self.E = importlib.import_module(
+            "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval."
+            "evaluate")
+        self.owners = {"base": BaseDataset, "E": self.E, "M": metrics,
+                       "P": postprocess, "trainer": BaseTrainer, "cli": cli}
+        self.calls, self.epochs, self.builds, self.saved = [], [], [], []
+        self.parts = dict.fromkeys(self.NAMES, 0.0)
+
+    def _timed(self, fn, done):
+        import torch
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            done((time.perf_counter() - t0) * 1e3, args, kwargs)
+            return out
+        return wrapper
+
+    def _part(self, name):
+        def done(ms, args, kwargs):
+            self.parts[name] += ms
+        return done
+
+    def _call(self, ms, args, kwargs):
+        ds = args[0][0] if isinstance(args[0], list) else args[0]
+        self.calls.append(dict(self.parts, cohort=ds.name, total=ms,
+                               description=kwargs.get("description")
+                               or "threshold fit (VAL)"))
+        self.parts = dict.fromkeys(self.NAMES, 0.0)
+
+    def _build(self, ms, args, kwargs):
+        self.builds.append((args[2].value, args[3], ms))
+
+    def _epoch(self, ms, args, kwargs):
+        if args[1] == "TRAIN":
+            self.epochs.append((int(args[3].size), ms))
+
+    def __enter__(self):
+        targets = [(o, n, self._part(p)) for p, o, n in self.PARTS]
+        targets += [("E", "evaluate", self._call),
+                    ("E", "determine_threshold_on_labeled_patients",
+                     self._call),
+                    ("trainer", "_run_epoch", self._epoch),
+                    ("cli", "build_dataset", self._build)]
+        for key, name, done in targets:
+            owner = self.owners[key]
+            fn = getattr(owner, name)
+            self.saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(fn, done))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        return False
+
+
+def phase_real_data(base):
+    """l. The paper's protocol through the CLI without ``--synthetic``
+    (``--preset AE -c paths -E 2 --device cuda`` at 128x128, zDim 128,
+    slices 20-130, bf16) on the real-format tree of ``real_tree``: train on
+    BRAINWEB healthy, the best-Dice upper bound without and with the prior
+    on BRAINWEB, MSLUB and MSISBI2015, the threshold fitted on BRAINWEB
+    VAL into ``calibration.json``, the three evaluations at it; every metric
+    row finite and present, one median launch per evaluated volume
+    (3 x the three TEST cohorts + BRAINWEB VAL, counted from the splits);
+    then ``infer --device cuda`` of one MSISBI2015 scan with that
+    calibration (one launch) and a warm ``detect`` of it (one launch a
+    call: a warm-up and 3 timed).  Prints the train
+    slices/s per epoch, each evaluation's wall with its split and the
+    served scan's latency.  Returns the median launches."""
+    import numpy as np
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
+        open_volume,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
+        AnomalyDetector,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
+        native,
+    )
+
+    root = tempfile.mkdtemp(dir=base)
+    paths, server, walls = real_tree(root)
+    print("[real] fixture: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in walls.items())
+          + f"; {len(server.requests)} BrainWeb requests; the native host "
+          f"helpers (resize, cache) "
+          f"{'built' if native.available() else 'not available'}")
+    wd = os.path.join(root, "trained")
+    metrics_path = os.path.join(root, "metrics.jsonl")
+    median.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with EvaluateSplit() as split:
+        rc = cli.main(["--preset", "AE", "-c", paths, *REAL_EPOCHS,
+                       "--device", DEVICE, "--workdir", wd, "--metrics-out",
+                       metrics_path])
+        torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = median.LAUNCHES
+    check(rc == 0, f"real-data protocol: CLI exited {rc}")
+
+    config = cli.preset("AE")
+    options = cli.Options(paths=cli.PathConfig.from_json(paths))
+    cohorts = {k: cli.build_dataset(options, config, cli.Dataset(k),
+                                    "pathological") for k in REAL_COHORTS}
+    tests = {k: len(c.patients_of("TEST")) for k, c in cohorts.items()}
+    n_val = len(cohorts["Brainweb"].patients_of("VAL"))
+    expected = 3 * sum(tests.values()) + n_val
+    check(launches == expected,
+          f"real-data protocol: median launched {launches} times for "
+          f"{expected} evaluated volumes (3 x TEST {tests} + BRAINWEB VAL "
+          f"{n_val})")
+    with open(metrics_path) as f:
+        rows = [json.loads(line) for line in f]
+    with open(os.path.join(wd, "calibration.json")) as f:
+        calib = json.load(f)
+    want = [f"{d}{s}" for s in ("_upperbound", "_upperbound_wPrior")
+            for d in REAL_COHORTS]
+    want += [f"{d}-VALthresh_{calib['threshold']:.5f}" for d in REAL_COHORTS]
+    check([r["description"] for r in rows] == want,
+          f"real-data protocol rows {[r['description'] for r in rows]}, "
+          f"expected {want}")
+    for r in rows:
+        for k in ("AUROC", "AUPRC", "bestDice", "DiceScore",
+                  "finalTrainLoss"):
+            check(r[k] is not None and np.isfinite(r[k]),
+                  f"{r['description']}: {k} = {r[k]}")
+    healthy = cli.build_dataset(options, config, cli.Dataset.BRAINWEB,
+                                "healthy")
+    print(f"[real] CLI --preset AE {' '.join(REAL_EPOCHS)} (BRAINWEB "
+          f"healthy: {len(healthy.patients_of('TRAIN'))} TRAIN volumes, "
+          f"{len(healthy.slices('TRAIN'))} slices) + 9 evaluations + "
+          f"threshold fit: {cli_s:.1f} s; median launches {launches} (3 x "
+          f"TEST {tests} + BRAINWEB VAL {n_val}); calibrated threshold "
+          f"{calib['threshold']:.5f} (VAL Dice {calib['bestDiceVAL']:.4f})")
+    print("[real] build_dataset (s, in call order; the first build of a "
+          "cohort is cold): " + "; ".join(f"{k} {r} {ms / 1e3:.1f}"
+                                          for k, r, ms in split.builds))
+    for i, (n, ms) in enumerate(split.epochs):
+        print(f"[real] train epoch {i + 1}: {n} slices in {ms:.1f} ms -> "
+              f"{n / ms * 1e3:.1f} slices/s (synchronised host clock)")
+    for r in rows:
+        print(f"[real] {r['description']}: AUROC {r['AUROC']:.4f} AUPRC "
+              f"{r['AUPRC']:.4f} bestDice {r['bestDice']:.4f} Dice "
+              f"{r['DiceScore']:.4f}")
+    for c in split.calls:
+        parts = {p: c[p] for p in split.NAMES}
+        print(f"[real] {c['cohort']} {c['description']}: {c['total']:.1f} ms "
+              f"(" + ", ".join(f"{p} {v:.1f}" for p, v in parts.items())
+              + f", other host {c['total'] - sum(parts.values()):.1f})")
+    per_cohort = {}
+    for c in split.calls:
+        per_cohort.setdefault(c["cohort"], []).append(c["total"])
+    print("[real] evaluate() wall per cohort (ms, each call): "
+          + "; ".join(f"{k} {[round(v, 1) for v in vs]}"
+                      for k, vs in per_cohort.items()))
+
+    isbi = cohorts["MSISBI2015"].patients_of("TEST")[0]
+    scan = isbi["filtered_files"][0]
+    out = os.path.join(root, "served")
+    median.LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["infer", "--workdir", wd, "-i", scan, "-o", out,
+                   "--device", DEVICE])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    served = median.LAUNCHES
+    check(rc == 0 and served == 1,
+          f"real-data infer: rc {rc}, {served} launches")
+    stem = os.path.basename(scan)[:-len(".nii")]
+    with open(os.path.join(out, f"{stem}.report.json")) as f:
+        report = json.load(f)
+    check(report["threshold"] == calib["threshold"],
+          "served threshold is not the calibrated one")
+    check(np.isfinite(report["slice_scores"]).all(),
+          "served slice scores not finite")
+    det = AnomalyDetector.from_workdir(wd, device=DEVICE)
+    nii = open_volume(scan)
+    vol = np.moveaxis(np.asarray(nii.data, np.float32),
+                      nii.view_mapping["axial"], 2)
+
+    def detect():
+        det.detect(vol)
+        torch.cuda.synchronize()
+
+    median.LAUNCHES = 0
+    detect_ms = host_ms(detect, n=3)
+    check(median.LAUNCHES == 4, f"warm detect: {median.LAUNCHES} launches "
+                                "for 4 calls (1 warm-up, 3 timed)")
+    served += median.LAUNCHES
+    print(f"[real] infer --device cuda of {os.path.basename(scan)} "
+          f"({vol.shape[2]} slices of {vol.shape[0]}x{vol.shape[1]}): "
+          f"{infer_s * 1e3:.1f} ms cold through the CLI (model load, read, "
+          f"export); warm detect {detect_ms:.1f} ms (host clock, median of "
+          f"3); {report.get('anomalous_voxels')} anomalous voxels at the "
+          f"calibrated threshold")
+    return launches + served, cli_s
+
+
+def phase_notebook(base):
+    """l-b. The code cells of ``examples/quickstart_torch.ipynb``, in order
+    in one namespace, as the notebook has them (its first cell picks
+    ``cuda``): one median launch per evaluated volume (2 x TEST + VAL of
+    the notebook's lesioned cohort), finite metrics.  Returns the
+    launches."""
+    import numpy as np
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    with open(os.path.join(ROOT, "examples", "quickstart_torch.ipynb")) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    ns = {}
+    median.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        for src in cells:
+            exec(compile(src, "quickstart_torch.ipynb", "exec"), ns)
+    finally:
+        if "options" in ns:
+            shutil.rmtree(ns["options"].paths.sample_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches = median.LAUNCHES
+    cohort = ns["lesioned"]
+    expected = (2 * len(cohort.patients_of("TEST"))
+                + len(cohort.patients_of("VAL")))
+    check(ns["DEVICE"] == "cuda" and ns["trainer"].device.type == "cuda",
+          "the notebook did not run on the card")
+    check(launches == expected, f"notebook: median launched {launches} times "
+                                f"for {expected} evaluated volumes")
+    for k in ("diff_AUC", "diff_AUPRC", "bestDiceScore"):
+        check(np.isfinite(ns["results"][k]), f"notebook: {k} not finite")
+    print(f"[notebook] {len(cells)} code cells on {ns['DEVICE']} in "
+          f"{wall:.1f} s: AUROC {ns['results']['diff_AUC']:.4f}, VAL "
+          f"threshold {ns['thresh']:.4f} -> TEST Dice "
+          f"{ns['fixed']['DiceScore']:.4f}; median launches {launches}")
+    return launches
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -3397,6 +3766,11 @@ def main():
             launches += sweep_l
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
+        real_launches, real_cli_s = timed_phase(
+            "9l-a real-data protocol", phase_real_data, tmp)
+        launches += real_launches
+        launches += timed_phase("9l-b quickstart notebook", phase_notebook,
+                                tmp)
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3461,6 +3835,9 @@ def main():
     print(f"[summary] all-preset sweep at the quality tables' recipe: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in sweep_walls.items())
           + "; every preset within the port's H100 tables")
+    print(f"[summary] real-data protocol (BrainWeb MINC1, MSLUB and "
+          f"MSISBI2015 NIfTI at 181x217x181): the AE preset's CLI run "
+          f"{real_cli_s:.1f} s; the quickstart notebook ran on the card")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

@@ -12,6 +12,8 @@ the same numbers as arguments, or through a patch of the trainer's
 ``sample_z`` and ``models/aae.py``'s ``uniform``.  Dropout is 0 where the
 streams would have to match."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,9 +61,6 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
     SYNTH,
     SyntheticOptions,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-    evaluate as E,
-)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
     aae,
     layers,
@@ -80,6 +79,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer,
 )
+
+E = importlib.import_module(
+    "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 LOSS_RTOL = 2e-5

@@ -3,6 +3,7 @@ families: ``--preset GMVAE_You`` and ``--preset AAE`` at 64x64 for one
 epoch on a short slice range train, evaluate three times, calibrate and
 serve, with one median per evaluated or served volume."""
 
+import importlib
 import json
 
 import numpy as np
@@ -17,10 +18,10 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.formats import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
     make_phantom,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-    evaluate as E,
-)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import gan
+
+E = importlib.import_module(
+    "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
 SMALL = ["-w", "64", "-g", "64", "-b", "8", "-s", "0", "-e", "16", "-E", "1",
          "--precision", "float32", "--device", "cpu"]

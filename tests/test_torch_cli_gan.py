@@ -8,6 +8,7 @@ the schedules at 1 critic (and for Chen 1 AE) update per batch; the
 schedules have their own tests (``tests/test_torch_resnet.py``,
 ``tests/test_torch_fanogan.py``)."""
 
+import importlib
 import json
 
 import numpy as np
@@ -26,10 +27,10 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.formats import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.synthetic import (
     make_phantom,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-    evaluate as E,
-)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import gan
+
+E = importlib.import_module(
+    "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
 
 @pytest.fixture(autouse=True, scope="module")

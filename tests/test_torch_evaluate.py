@@ -2,6 +2,7 @@
 on the same weights and the lesioned synthetic cohort at 64x64, and against
 the golden host recipe of `tests/test_golden_parity.py`."""
 
+import importlib
 import os
 
 import jax
@@ -43,9 +44,6 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
     Options,
     PathConfig,
 )
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-    evaluate as E,
-)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
     vae as port_vae,
 )
@@ -55,6 +53,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer,
 )
+
+E = importlib.import_module(
+    "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
 CURVE_TOL = 1e-5  # AUROC, AUPRC, best Dice, thresholds
 COUNTS = ("TP", "FP", "TN", "FN", "TPCC", "FPCC", "FNCC")

@@ -13,6 +13,8 @@ dims make the three shapes differ), and the port takes the same numbers
 through its noise seam (a dict of tensors by draw name as ``sample``) or
 the same patch of ``models/gmvae.py``'s ``standard_normal``."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -63,9 +65,6 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
     PathConfig,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import synthetic
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-    evaluate as E,
-)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
     gmvae,
     layers,
@@ -89,6 +88,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer,
 )
+
+E = importlib.import_module(
+    "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 LOSS_RTOL = 2e-5

@@ -5,6 +5,8 @@ also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -151,9 +153,8 @@ def test_fit_on_card_draws_dropout_on_the_card_and_resumes(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_evaluate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-        evaluate as E,
-    )
+    E = importlib.import_module(
+        "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -236,9 +237,8 @@ def test_batched_restoration_on_card_equals_per_volume_calls(cuda):
 def test_mc_evaluate_on_card(cuda, tmp_path):
     """MC evaluation on the card: one median launch per volume (not per
     sample), finite variances that are 0 outside the eroded mask."""
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
-        evaluate as E,
-    )
+    E = importlib.import_module(
+        "unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate")
 
     t = _vae_trainer("VAE", "variational_autoencoder", "cuda",
                      dropout_rate=0.5)

@@ -3,6 +3,7 @@ imports JAX or anything of the JAX package, and with those names blocked
 every module of the port imports and the CLI builds its synthetic cohort."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -16,7 +17,8 @@ BANNED = ("unsupervised_anomaly_detection_brain_mri_tpu", "jax", "jaxlib",
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "tests", "_torch_realdata.py")]
     for dirpath, dirnames, names in os.walk(os.path.join(ROOT, PORT)):
         dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
         out += [os.path.join(dirpath, n) for n in sorted(names)
@@ -49,6 +51,27 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
     bad = sorted(n for n in _imported_names(tree)
                  if n.split(".")[0] in BANNED)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_quickstart_notebook_imports_nothing_of_jax_or_the_jax_package():
+    """The code cells of `examples/quickstart_torch.ipynb`, each parsed."""
+    with open(os.path.join(ROOT, "examples", "quickstart_torch.ipynb")) as f:
+        cells = [c for c in json.load(f)["cells"] if c["cell_type"] == "code"]
+    assert cells
+    names = [n for c in cells
+             for n in _imported_names(ast.parse("".join(c["source"])))]
+    assert PORT in {n.split(".")[0] for n in names}
+    bad = sorted(n for n in names if n.split(".")[0] in BANNED)
+    assert not bad, f"quickstart_torch.ipynb imports {bad}"
+
+
+def test_sources_cover_the_mains_and_this_slice():
+    """The scan reaches the preset mains, the downloader and the shared
+    real-format fixture that chip_smoke.py uses."""
+    sources = set(_sources())
+    assert {os.path.join(PORT, "mains", "main_AE.py"),
+            os.path.join(PORT, "data", "download.py"),
+            os.path.join("tests", "_torch_realdata.py")} <= sources
 
 
 def test_sources_cover_the_whole_model_zoo():

@@ -1,8 +1,8 @@
 """The port's all-preset sweep (``run_all.py``) on the CPU: its copies of
 ``compare_scoreboard`` and ``_comparable_settings`` against
 `examples/run_all.py` on the JAX tests' cases, ``--device`` left out of the
-settings in every spelling, the exits (``--download``, an unknown preset, a
-preset that raises), the three committed tables, the JAX seed spread's
+settings in every spelling, the exits (an unknown preset, also with
+``--download``, and a preset that raises), the three committed tables, the JAX seed spread's
 file, and the five presets whose quality left the JAX table, from one
 start in both packages: one epoch (``AAE``, ``fAnoGAN``,
 ``GMVAE_spatial``) or one recipe batch against the JAX package's own
@@ -168,9 +168,18 @@ def test_device_is_left_out_of_the_settings_in_every_spelling(spelling):
 # the exits
 
 
-def test_download_exits_2(capsys):
-    assert run_all.main(["--download", "--synthetic", "--device", "cpu"]) == 2
-    assert "not ported" in capsys.readouterr().err
+def test_download_exits_2(tmp_path, monkeypatch, capsys):
+    """``--download`` downloads (``tests/test_torch_download.py``), but
+    with an unknown preset the sweep exits 2 before fetching anything."""
+    monkeypatch.setattr("urllib.request.urlopen",
+                        lambda *a, **k: pytest.fail("fetched"))
+    paths = tmp_path / "paths.json"
+    paths.write_text(json.dumps({"BRAINWEBDIR": str(tmp_path / "bw")}))
+    assert run_all.main(["--download", "--presets", "NoSuchNet", "-c",
+                         str(paths), "--synthetic", "--device", "cpu"],
+                        opener=lambda req: pytest.fail("fetched")) == 2
+    assert "NoSuchNet" in capsys.readouterr().err
+    assert not (tmp_path / "bw").exists()
 
 
 def test_unknown_preset_exits_2(monkeypatch, capsys):

@@ -12,8 +12,11 @@ Ported: all 18 presets end to end: training (``train/``), ``evaluate()``
 with MC dropout and threshold transfer (``eval/evaluate.py``), serving
 (``eval/inference.py``) and the CLI (``python -m
 unsupervised_anomaly_detection_brain_mri_tpu_torch --preset AE
---synthetic``; ``... infer``); and the data-parallel layer
-(``parallel/``, ``--mesh-data N`` under ``torchrun``).
+--synthetic``; without ``--synthetic`` the paper's protocol on BRAINWEB,
+MSLUB and MSISBI2015 from ``-c paths.json``; ``... infer``; the preset
+mains ``mains/main_<preset>.py``); the BrainWeb downloader
+(``data/download.py``, ``run_all --download``); and the data-parallel
+layer (``parallel/``, ``--mesh-data N`` under ``torchrun``).
 """
 
 __version__ = "0.1.0"

@@ -9,16 +9,21 @@ falls back to the CPU).
 
     python -m unsupervised_anomaly_detection_brain_mri_tpu_torch \
         --preset AE --synthetic --device cuda
+    python -m unsupervised_anomaly_detection_brain_mri_tpu_torch \
+        --preset AE -c paths.json --device cuda
     python -m unsupervised_anomaly_detection_brain_mri_tpu_torch infer \
         --workdir W -i scan.nii.gz
 
-Training runs the JAX CLI's protocol: ``fit``, best-Dice ``evaluate()``
-without and with the hyperintensity prior, the threshold fitted on the
-lesion cohort's VAL split (written to ``calibration.json``), and
-``evaluate()`` again at that threshold; ``--metrics-out`` collects one
-JSON row per evaluation.  ``--tb-every-n N`` writes TensorBoard event
-files under ``<workdir>/logs/{train,val}`` (``utils/logger.py``): each
-epoch's scalars and image grid, and every N-th batch's.
+Training runs the JAX CLI's protocol: ``fit`` (on BRAINWEB's healthy
+phantoms from the ``-c`` paths file, or the phantom cohort with
+``--synthetic``), best-Dice ``evaluate()`` without and with the
+hyperintensity prior (on BRAINWEB, MSLUB and MSISBI2015, or ``-d``'s
+dataset), the threshold fitted on the first cohort's VAL split (written to
+``calibration.json``), and ``evaluate()`` again at that threshold;
+``--metrics-out`` collects one JSON row per evaluation.  ``--tb-every-n
+N`` writes TensorBoard event files under ``<workdir>/logs/{train,val}``
+(``utils/logger.py``): each epoch's scalars and image grid, and every
+N-th batch's.
 
 The architecture is the reference's by default (``resolve_tpu_fast``: the
 backend is never a TPU here).  ``--tpu-fast`` turns on both non-parity

@@ -1,0 +1,12 @@
+"""Experiment preset 'fAnoGAN_schlegl' on the port: forwards ``--preset fAnoGAN_schlegl`` and
+the command line's arguments to the port's CLI (``cli.main``).
+
+    python -m unsupervised_anomaly_detection_brain_mri_tpu_torch.mains.main_fAnoGAN_schlegl [flags]
+"""
+
+import sys
+
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main(["--preset", "fAnoGAN_schlegl"] + sys.argv[1:]))

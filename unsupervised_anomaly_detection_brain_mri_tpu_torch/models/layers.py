@@ -21,7 +21,8 @@ Numerics that must match Flax:
 
 Also here: the nearest x2 upsample of ``GMVAEYou``, the latent critic
 ``MLPDiscriminator`` of the adversarial autoencoders (LeakyReLU 0.2, not the
-backbone's 0.3), and ``SpatialLayerNorm``, the LayerNorm over (H, W) of the
+backbone's 0.3), ``sample_from_prior`` (images decoded from N(0, I)
+latents), and ``SpatialLayerNorm``, the LayerNorm over (H, W) of the
 ResNets and of the image critics' and generators' unified backbones
 (``use_batchnorm=False``).
 
@@ -613,6 +614,26 @@ class UnifiedDecoder(nn.Module):
         else:
             x = self.dec_conv_final(x)
         return x.to(torch.float32)
+
+
+def sample_from_prior(model: nn.Module, generator: torch.Generator, n: int,
+                      z_dim: int, method: str = "decode",
+                      **kwargs) -> torch.Tensor:
+    """Decode ``n`` latents drawn from N(0, I) by ``generator`` (on its
+    device) through ``model.<method>``: ``decode`` on the AAE family,
+    ``generate`` on the GAN family (the JAX package's ``sample_from_prior``
+    with a ``torch.Generator`` for the key).  Runs without autograd and in
+    eval mode, as the JAX function applies the model with ``train=False``;
+    the module's mode is restored afterwards."""
+    z = torch.randn((n, z_dim), generator=generator,
+                    device=generator.device)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return getattr(model, method)(z, **kwargs)
+    finally:
+        model.train(was_training)
 
 
 class MLPDiscriminator(nn.Module):

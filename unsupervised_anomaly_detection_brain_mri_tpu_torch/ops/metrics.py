@@ -182,6 +182,36 @@ def _sample_positions(n: int, num_points: int, device) -> Tensor:
         np.int64)).to(device)
 
 
+def _curve_samples(scores: Tensor, labels: Tensor, num_points: int):
+    """The sorted sweep sampled at ``num_points`` even positions of the
+    sorted order: (thresholds, TP, FP, P, N), the counts in float64."""
+    s, tps, fps, _ = _sweep(scores, labels)
+    pos = _sample_positions(s.shape[0], num_points, s.device)
+    return (s[pos], tps[pos].to(torch.float64), fps[pos].to(torch.float64),
+            tps[-1].to(torch.float64), fps[-1].to(torch.float64))
+
+
+def roc_curve_points(scores: Tensor, labels: Tensor, num_points: int = 256
+                     ) -> Dict[str, Tensor]:
+    """(fpr, tpr, thresholds) sampled along the sorted sweep for curve
+    artifacts (rocPC.npy parity; the exact AUC comes from roc_auc)."""
+    ts, tp, fp, P, N = _curve_samples(scores, labels, num_points)
+    return {"fpr": fp / N, "tpr": tp / P, "thresholds": ts}
+
+
+def prc_curve_points(scores: Tensor, labels: Tensor, num_points: int = 256
+                     ) -> Dict[str, Tensor]:
+    """(precisions, recalls, thresholds) sampled along the sorted sweep."""
+    ts, tp, fp, P, _ = _curve_samples(scores, labels, num_points)
+    return {"precisions": tp / torch.clamp_min(tp + fp, 1.0),
+            "recalls": tp / P, "thresholds": ts}
+
+
+def dice_at_threshold(scores: Tensor, labels: Tensor, t) -> Tensor:
+    """Dice of ``scores > t`` against ``labels``."""
+    return dice((scores > t).to(torch.float32), labels)
+
+
 def anomaly_curve_summary(scores: Tensor, labels: Tensor,
                           num_points: int = 256) -> Dict[str, object]:
     """AUROC, AP, the best-Dice threshold, the precision-70 threshold and

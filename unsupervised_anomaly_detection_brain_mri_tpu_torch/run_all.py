@@ -31,8 +31,11 @@ rounding: two default sweeps on one H100 moved ``constrainedAAE_Chen``'s
 AUROC by 0.057 and its final loss fourfold, and on the CPU its AUPRC moved
 by 0.12 between 2 and 8 threads, beyond the tables' tolerances.
 
-``--download`` exits 2: downloading BrainWeb needs the network and is not
-ported.  An unknown preset exits 2.  A preset that raises is reported,
+``--download`` first downloads BrainWeb (``data/download.py``) into the
+``BRAINWEBDIR`` of the ``-c``/``--config`` paths file (default
+``config.default.json``), as `examples/run_all.py` does, then runs the sweep;
+``main(argv, opener=...)`` hands the downloader another opener than
+``urllib``'s.  An unknown preset exits 2.  A preset that raises is reported,
 listed under FAILED, and the exit code is 1.  Asking for a card that is
 not there raises; nothing falls back to the CPU.
 """
@@ -246,10 +249,30 @@ def reproducible(backend: str):
             torch.set_num_threads(threads)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def _download(passthrough: List[str], opener=None) -> None:
+    """Download BrainWeb into the ``BRAINWEBDIR`` of the paths file that
+    ``-c``/``--config`` names (default ``config.default.json``)."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.data.download import (
+        download_brainweb_dataset,
+    )
+
+    cfg_path = "config.default.json"
+    for i, a in enumerate(passthrough):
+        if a in ("-c", "--config"):
+            cfg_path = passthrough[i + 1]
+    with open(cfg_path) as f:
+        target = json.load(f)["BRAINWEBDIR"]
+    print(f"Downloading BrainWeb into {target} ...")
+    download_brainweb_dataset(target, opener=opener)
+
+
+def main(argv: Optional[List[str]] = None, opener=None) -> int:
+    """The sweep; ``opener`` goes to the BrainWeb downloader
+    (``--download``; default ``urllib.request.urlopen``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--download", action="store_true",
-                    help="not ported: downloading BrainWeb needs the network")
+                    help="download BrainWeb into the BRAINWEBDIR of -c "
+                         "first")
     ap.add_argument("--presets", default=None,
                     help="comma-separated subset (default: all)")
     ap.add_argument("--scoreboard", default=None,
@@ -259,12 +282,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "preset's metrics regress beyond tolerance")
     args, passthrough = ap.parse_known_args(argv)
 
-    if args.download:
-        print("--download is not ported: downloading BrainWeb needs the "
-              "network; fetch it with the JAX package's "
-              "data/download.py and pass -c with its BRAINWEBDIR",
-              file=sys.stderr)
-        return 2
     presets = (args.presets.split(",") if args.presets
                else list(EXPERIMENT_PRESETS))
     unknown = [p for p in presets if p not in EXPERIMENT_PRESETS]
@@ -272,6 +289,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"unknown preset(s) {unknown}; known: "
               f"{sorted(EXPERIMENT_PRESETS)}", file=sys.stderr)
         return 2
+    if args.download:
+        _download(passthrough, opener)
     # cuBLAS is deterministic with a fixed workspace, read when its
     # handle is made
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
