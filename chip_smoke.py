@@ -126,7 +126,13 @@ last line):
      slices/s per epoch, each evaluation's wall split into load, resample,
      reconstruct, postprocess, curves and components, the served scan's
      latency; b. the code cells of ``examples/quickstart_torch.ipynb`` on
-     the card, one median launch per evaluated volume;
+     the card, one median launch per evaluated volume; m. the
+     measurement layer at a small size, four processes at once:
+     ``bench_torch.py`` (``BENCH_SMALL``) exits 0 with the headline line,
+     every section's rows finite, the median section through the CUDA
+     kernel and equal to the plain version; ``tools/hbm_roofline_torch.py``
+     and ``tools/parity_stage_roofline_torch.py`` (parity and ``--fast``,
+     ``TOOL_SMALL``) exit 0 with finite rows and the H100's ceilings;
  10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
@@ -189,6 +195,19 @@ PROFILES = []  # (key, fn, title) queued for phase 9
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def card_peaks():
+    """(dense bf16 FLOP/s, HBM bytes/s) of the card, from the port's
+    ``utils/misc.py::device_peaks`` (an H100 SXM: 989e12, 3.35e12)."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils.misc import (
+        device_peaks,
+    )
+
+    return device_peaks(torch.cuda.get_device_name(0) if DEVICE == "cuda"
+                        else "cpu")
 
 
 def cuda_ms(fn, n=20, warmup=3, batch=1):
@@ -361,8 +380,8 @@ def phase_kernel():
     served_batched_ms = cuda_ms(lambda: median_filter_3d_cuda(served),
                                 batch=KERNEL_BATCH)
     # least time: each input byte read once, each output byte written once
-    # at the H100's 3.35 TB/s; a median does no floating-point products
-    bound_ms = 2 * serve_vol.numel() * 4 / 3.35e12 * 1e3
+    # at the card's HBM rate; a median does no floating-point products
+    bound_ms = 2 * serve_vol.numel() * 4 / card_peaks()[1] * 1e3
     windows = median_windows(serve_vol)
     library_ms = cuda_ms(lambda: torch.median(windows, dim=-1))
     med, rounds = median_select_reference(windows)
@@ -1884,8 +1903,6 @@ GAN_TIMINGS = (("Chen ae_iters 20", "constrainedAAE_Chen", 0, 2, 1),
 # (the CLI's slice range; width and batch are the presets'): an epoch of
 # the full 110 takes Chen ~80 s on an H100
 GAN_SLICES = ("-s", "20", "-e", "36")
-# dense bf16 peak of an H100 SXM (TFLOP/s), for the achieved share
-H100_BF16_TFLOPS = 989.0
 
 
 def schedule_counts(trainer_cls):
@@ -2147,30 +2164,14 @@ def phase_last_card_vs_cpu():
 
 
 def step_flops(trainer, pool):
-    """The FLOPs of one training step on the first batch of ``pool``: each
-    operator that ``torch.utils.flop_counter`` has a formula for (matrix
-    products and convolutions, forward and backward, the penalties' double
-    backwards included), counted by a dispatch mode.  ``FlopCounterMode``
-    itself cannot count a step: its module hooks refuse the penalty's
-    ``autograd.grad`` on a leaf."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils.flop_counter import flop_registry
+    """The FLOPs of one training step on the first batch of ``pool``, by
+    ``bench_torch.count_flops`` (``torch.utils.flop_counter``'s formulas
+    applied by a dispatch mode, the penalties' double backwards
+    included)."""
+    from bench_torch import count_flops
 
-    class Counter(TorchDispatchMode):
-        total = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            out = func(*args, **kwargs)
-            formula = flop_registry.get(func._overloadpacket)
-            if formula is not None:
-                self.total += formula(*args, **kwargs, out_val=out)
-            return out
-
-    batch = {"x": pool["x"][:trainer.config.batchsize]}
-    with Counter() as counter:
-        trainer.train_step(batch)
-    return counter.total
+    return count_flops(trainer.train_step,
+                       {"x": pool["x"][:trainer.config.batchsize]})
 
 
 def phase_last_timings(cudnn_tf32, matmul_tf32, chen_wd):
@@ -2189,6 +2190,7 @@ def phase_last_timings(cudnn_tf32, matmul_tf32, chen_wd):
     torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
     _, options, healthy, cohort = lesion_cohort("constrainedAAE_Chen")
     pool = device_pool(healthy)
+    peak_tflops = card_peaks()[0] / 1e12
     sps, rates = {}, {}
     for label, name, phase, steps, profiled in GAN_TIMINGS:
         c = preset(name)
@@ -2200,8 +2202,8 @@ def phase_last_timings(cudnn_tf32, matmul_tf32, chen_wd):
         rates[label] = flops * sps[label] / c.batchsize / 1e12
         print(f"[timing] {label}: {flops / 1e12:.3f} TFLOP per step of batch "
               f"{c.batchsize} -> {rates[label]:.1f} TFLOP/s, "
-              f"{100 * rates[label] / H100_BF16_TFLOPS:.1f} % of the dense "
-              f"bf16 peak {H100_BF16_TFLOPS:.0f} TFLOP/s")
+              f"{100 * rates[label] / peak_tflops:.1f} % of the dense "
+              f"bf16 peak {peak_tflops:.0f} TFLOP/s")
     with open(os.path.join(chen_wd, "config.json")) as f:
         chen_config = Config.from_json(f.read())
     options = timing_options(options)
@@ -3646,6 +3648,114 @@ def phase_notebook(base):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9m: the measurement layer (``bench_torch.py``, the roofline tools)
+# at a small size; their full-size runs are commands of their own
+BENCH_SMALL = ("--batch", "8", "--image", "64", "--slices", "16",
+               "--depth", "16", "--restore-steps", "10")
+TOOL_SMALL = ("--batch", "8", "--image", "64")
+MEASURE_TIMEOUT_S = 300
+
+
+def run_json_all(commands):
+    """Run each ``(script, *args)`` as ``python3 script args --device
+    DEVICE`` from the checkout's root, all at once (each its own process,
+    as a user runs it; at this size their times are not read); rc 0 and
+    the last line of each one's output as JSON, or raise."""
+    procs = [subprocess.Popen([sys.executable, *cmd, "--device", DEVICE],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
+    outs = []
+    try:
+        for cmd, proc in zip(commands, procs):
+            out, err = proc.communicate(timeout=MEASURE_TIMEOUT_S)
+            check(proc.returncode == 0, f"{' '.join(cmd)}: rc "
+                  f"{proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def _finite_numbers(obj):
+    """Every int and float in ``obj`` (bools left out) is finite."""
+    import math
+
+    if isinstance(obj, dict):
+        return all(_finite_numbers(v) for v in obj.values())
+    if isinstance(obj, list):
+        return all(_finite_numbers(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return math.isfinite(obj)
+    return True
+
+
+def phase_measurement():
+    """9m. ``bench_torch.py`` and both roofline tools at a small size."""
+    import torch
+
+    import bench_torch
+
+    peaks = card_peaks()
+    kind = torch.cuda.get_device_name(0) if DEVICE == "cuda" else "cpu"
+    stage_tool = os.path.join("tools", "parity_stage_roofline_torch.py")
+    t0 = time.perf_counter()
+    out, hbm, *stage_runs = run_json_all([
+        ("bench_torch.py", *BENCH_SMALL),
+        (os.path.join("tools", "hbm_roofline_torch.py"), *TOOL_SMALL,
+         "--slices", "32"),
+        (stage_tool, *TOOL_SMALL), (stage_tool, *TOOL_SMALL, "--fast")])
+    print(f"[measure] the four processes took "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    check(set(out) == {"metric", "value", "unit", "vs_baseline", "detail"}
+          and out["metric"] == bench_torch.METRIC
+          and out["unit"] == bench_torch.UNIT, f"bench line {out}")
+    d = out["detail"]
+    check("error" not in d, f"bench error: {d.get('error')}")
+    check(list(d["section_secs"])[1:] == [
+        f.__name__ for f in bench_torch.SECTIONS],
+        f"bench sections {list(d['section_secs'])}")
+    missing = [k for k in bench_torch.ROW_KEYS if d.get(k) is None]
+    check(not missing, f"bench rows missing: {missing}")
+    check(_finite_numbers(out), f"bench: non-finite values in {out}")
+    check(out["value"] > 0 and out["vs_baseline"] > 0, f"bench {out}")
+    check(d["device_kind"] == kind, f"bench ran on {d['device_kind']}")
+    check(d["median5_equals_plain"] is True and d["median5_launches"] >= 1,
+          f"bench median: equal {d['median5_equals_plain']}, launches "
+          f"{d['median5_launches']}")
+    print(f"[measure] bench_torch.py {' '.join(BENCH_SMALL)}: "
+          f"{out['value']} slices/s, vs_baseline "
+          f"{out['vs_baseline']}, MFU {d['ae_mfu_pct']} %, median kernel "
+          f"{d['median5_volumes_per_sec']} volumes/s (plain "
+          f"{d['median5_plain_volumes_per_sec']}, "
+          f"{d['median5_launches']} launches); sections "
+          f"{d['section_secs']}")
+    check(_finite_numbers(hbm) and hbm["device"] == kind
+          and hbm["ae"].get("achieved_GBps") is not None
+          and hbm["peak_datasheet_GBps"] == peaks[1] / 1e9,
+          f"hbm roofline {hbm}")
+    print(f"[measure] hbm_roofline_torch.py: achievable "
+          f"{hbm['peak']['achievable_GBps']} GB/s, AE epoch "
+          f"{hbm['ae']['bytes_accessed_per_epoch_GB']} GB at "
+          f"{hbm['ae']['achieved_GBps']} GB/s "
+          f"({hbm['hbm_utilization_pct']} %)")
+    for fast, st in zip(((), ("--fast",)), stage_runs):
+        check(_finite_numbers(st) and st["device"] == kind
+              and (st["peak_flops"], st["peak_bytes_per_sec"]) == peaks
+              and len(st["stages"]) == 4
+              and all("measured_ms" in r for r in st["stages"]),
+              f"stage roofline {fast}: {st}")
+        print(f"[measure] parity_stage_roofline_torch.py {' '.join(fast)}: "
+              + "; ".join(f"{r['stage']} {r['measured_ms']} ms "
+                          f"({r['pct_of_lightspeed']} % of its "
+                          f"{r['bound']} bound)" for r in st["stages"]))
+    return out
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -3771,6 +3881,7 @@ def main():
         launches += real_launches
         launches += timed_phase("9l-b quickstart notebook", phase_notebook,
                                 tmp)
+        bench = timed_phase("9m measurement layer", phase_measurement)
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3838,6 +3949,10 @@ def main():
     print(f"[summary] real-data protocol (BrainWeb MINC1, MSLUB and "
           f"MSISBI2015 NIfTI at 181x217x181): the AE preset's CLI run "
           f"{real_cli_s:.1f} s; the quickstart notebook ran on the card")
+    print(f"[summary] measurement layer at a small size: bench_torch.py "
+          f"{bench['value']} slices/s, vs_baseline {bench['vs_baseline']}, "
+          f"{bench['detail']['median5_launches']} median kernel launches in "
+          f"its own process; both roofline tools ran")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",

@@ -86,7 +86,8 @@ def _defines(node):
 # (module, whole copy, names the port defines differently)
 COPIES = [
     ("config.py", True, ()),
-    ("utils/misc.py", False, ()),  # only json_sanitize
+    # the helpers without JAX; device_peaks adds the H100's rows
+    ("utils/misc.py", False, ("device_peaks",)),
     ("data/formats.py", True, ()),
     ("data/volume.py", True, ()),
     # the library is built from the port's csrc_host/ into build/native/

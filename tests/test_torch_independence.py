@@ -3,6 +3,7 @@ imports JAX or anything of the JAX package, and with those names blocked
 every module of the port imports and the CLI builds its synthetic cohort."""
 
 import ast
+import glob
 import json
 import os
 import subprocess
@@ -18,7 +19,13 @@ BANNED = ("unsupervised_anomaly_detection_brain_mri_tpu", "jax", "jaxlib",
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "bench_torch.py"),
            os.path.join(ROOT, "tests", "_torch_realdata.py")]
+    # the tools written for the port; jax_workdir_to_torch.py reads a JAX
+    # workdir with the JAX package, by design
+    out += sorted(p for p in glob.glob(os.path.join(ROOT, "tools",
+                                                    "*_torch.py"))
+                  if os.path.basename(p) != "jax_workdir_to_torch.py")
     for dirpath, dirnames, names in os.walk(os.path.join(ROOT, PORT)):
         dirnames[:] = sorted(d for d in dirnames if d != "__pycache__")
         out += [os.path.join(dirpath, n) for n in sorted(names)
@@ -83,6 +90,13 @@ def test_sources_cover_the_whole_model_zoo():
             "chen.py", "fanogan.py", "anovaegan.py"} <= models
 
 
+def test_sources_cover_the_measurement_layer():
+    """The scan reaches the benchmark and both roofline tools."""
+    assert {"bench_torch.py", os.path.join("tools", "hbm_roofline_torch.py"),
+            os.path.join("tools", "parity_stage_roofline_torch.py")} <= set(
+        _sources())
+
+
 _BLOCKER = """
 import sys
 
@@ -144,6 +158,27 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     proc = _run_blocked(_IMPORT_ALL)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "IMPORTED" in proc.stdout
+
+
+_IMPORT_MEASUREMENT = """
+import importlib.util
+import os
+
+import bench_torch
+
+for rel in ("tools/hbm_roofline_torch.py",
+            "tools/parity_stage_roofline_torch.py"):
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(rel)[:-3], rel)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("IMPORTED", bench_torch.METRIC)
+"""
+
+
+def test_the_measurement_layer_imports_with_jax_blocked():
+    proc = _run_blocked(_IMPORT_MEASUREMENT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "IMPORTED brainweb_ae_train_throughput" in proc.stdout
 
 
 def test_cli_builds_the_synthetic_cohort_with_jax_blocked():

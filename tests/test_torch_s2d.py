@@ -7,8 +7,9 @@ BatchNorm statistics) go through both packages: the packing functions at
 C = 1 and C = 2 (where the JAX package's (dy, dx, c) channel order and
 ``pixel_shuffle``'s (c, dy, dx) differ), the forward of ``Autoencoder``,
 ``VariationalAutoencoder`` (given eps), ``AdversarialAutoencoder`` (given
-prior z and interpolate eps) and ``AnoVAEGAN`` (given eps and alpha) with
-each option alone and with both, and an ``AE`` Adam step with both, step
+prior z and interpolate eps), ``AnoVAEGAN`` (given eps and alpha), the
+spatial and the constrained AEs, the constrained AAE and ``fanogan``
+(given z and alpha) with each option alone and with both, and an ``AE`` Adam step with both, step
 by step from the JAX state.  The registry passes the options only to the
 models that take them, as the JAX registry does; the CLI's ``--tpu-fast``,
 ``--s2d-stem``, ``--d2s-head`` and ``--parity`` resolve as the JAX CLI's.
@@ -59,7 +60,14 @@ FLAGS = {"stem": dict(spaceToDepthStem=True),
 MODELS = {"autoencoder": dict(intermediateResolutions=(8, 8)),
           "variational_autoencoder": dict(intermediateResolutions=(8, 8)),
           "adversarial_autoencoder": dict(intermediateResolutions=(16, 16)),
-          "anovaegan": dict(intermediateResolutions=(8, 8))}
+          "anovaegan": dict(intermediateResolutions=(8, 8)),
+          "autoencoder_spatial": dict(intermediateResolutions=(8, 8)),
+          "constrained_autoencoder": dict(intermediateResolutions=(16, 16)),
+          "constrained_adversarial_autoencoder": dict(
+              intermediateResolutions=(16, 16)),
+          "fanogan": dict(intermediateResolutions=(16, 16))}
+# the models whose ``gp`` draw is an interpolation weight per image
+IMAGE_CRITICS = ("anovaegan", "fanogan")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -140,7 +148,7 @@ def _forward_pair(model, flags, channels=1, monkeypatch=None):
          "sample": jax.random.key(2), "gp": jax.random.key(3)}, *args,
         train=True, dropout=False))
     stats = _randomised_batch_stats(variables.get("batch_stats", {}), rng)
-    uniform = alpha if model == "anovaegan" else eps
+    uniform = alpha if model in IMAGE_CRITICS else eps
     monkeypatch.setattr(jax.random, "normal",
                         lambda key, shape, dtype=jnp.float32: jnp.asarray(z))
     monkeypatch.setattr(jax.random, "uniform",

@@ -3,7 +3,8 @@
 Copy of the part of `unsupervised_anomaly_detection_brain_mri_tpu/utils/
 misc.py` that holds no JAX: ``timestamp``, ``normalize``,
 ``apply_colormap`` (matplotlib imported when it is called) and
-``json_sanitize``.
+``json_sanitize``; and ``device_peaks``, the JAX table with the H100's
+rows added.
 """
 
 from __future__ import annotations
@@ -12,6 +13,31 @@ import datetime
 import math
 
 import numpy as np
+
+
+def device_peaks(dev_kind: str) -> tuple:
+    """(peak_dense_flops_per_sec, peak_hbm_bytes_per_sec) for a device
+    name: a TPU ``device_kind`` or ``torch.cuda.get_device_name`` -- the
+    single source for the MFU rows of ``bench_torch.py`` and the ceilings
+    of ``tools/*_roofline_torch.py``.  The TPU rows are the JAX package's.
+    An H100 SXM (``NVIDIA H100 80GB HBM3``) gets NVIDIA's data-sheet bf16
+    dense rate and HBM3 bandwidth at its 700 W limit; an H100 PCIe gets
+    its own data-sheet row (bf16 dense 756 TFLOP/s, HBM2e 2.0 TB/s), never
+    the SXM one.  Other kinds (other H100 forms, CPU runs) get placeholder
+    ceilings so output keeps its shape without implying a real
+    utilisation number."""
+    kind = dev_kind.lower()
+    if "h100" in kind:
+        if "pcie" in kind:
+            return 756e12, 2.0e12
+        if "hbm3" in kind or "sxm" in kind:
+            return 989e12, 3.35e12
+        return 1e12, 100e9
+    if "v5" in kind or "lite" in kind:
+        return 197e12, 819e9  # v5e bf16 dense / HBM
+    if "v4" in kind:
+        return 275e12, 1228e9
+    return 1e12, 100e9
 
 
 def timestamp() -> str:
