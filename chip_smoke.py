@@ -40,7 +40,10 @@ last line):
      relative (float32 trajectories drift apart at (Leaky)ReLU kinks), and
      step by step from the CPU's state losses within 1e-4 relative and
      each tensor and its update within the bounds of ``compare_training``;
-     the gradients of step 1's differing elements are printed;
+     the gradients of step 1's differing elements are printed, and each
+     is told apart as rounding or a kink against float64 gradients on the
+     CPU with each device's kink pattern (``flipped_gradients``; one that
+     is neither fails);
   7. timings: warm train slices/s (CUDA events over one warm run of 100
      steps, the epoch's index matrix repeated) and warm ``evaluate()`` of
      the TEST cohort split into reconstruct, postprocess, curves and
@@ -133,6 +136,13 @@ last line):
      kernel and equal to the plain version; ``tools/hbm_roofline_torch.py``
      and ``tools/parity_stage_roofline_torch.py`` (parity and ``--fast``,
      ``TOOL_SMALL``) exit 0 with finite rows and the H100's ceilings;
+     n. the seed spread of ``AAE``, ``fAnoGAN`` and ``AnoVAEGAN``: each
+     from 5 init seeds through the CLI at the quality tables' recipe,
+     ``--tpu-fast`` and parity, under ``run_all``'s deterministic
+     settings (30 runs); each run printed beside the JAX package's CPU
+     spread of its profile, and every metric's range over the seeds must
+     overlap that spread widened by the tables' tolerances; one median
+     launch per evaluated volume;
  10. profiles, after every timing (a ``torch.profiler`` session slows
      every later launch): a ``torch.profiler`` summary of each queued run
      with the device's busy share over its own profiled span, printed and
@@ -142,6 +152,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import importlib
 import json
@@ -166,6 +177,11 @@ KINK_FRACTION = 3e-3
 KINK_FLOOR = 3
 UPDATE_TOL = 0.25
 FREE_RUN_TOL = 1e-3
+# a step's float32 gradients against float64 with the same kink pattern,
+# per tensor, as a fraction of its largest float64 gradient (up to 1.2e-4
+# on the CPU for the AE at 128x128: BatchNorm's backward cancels); a wrong
+# gradient is off by its whole size
+GRAD64_RTOL = 1e-2
 TIMED_STEPS = 100
 KERNEL_BATCH = 10  # back-to-back kernel calls per pair of CUDA events
 STEP_PRESETS = ("VAE_Zimmerer", "ceVAE_Zimmerer", "AE_spatial", "CE",
@@ -789,28 +805,143 @@ def compare_training(card, cpu, start, config, t, bound_of=None):
     return bound, worst_fed, worst, beyond, worst_frac, worst_upd
 
 
-def flipped_gradients(card, cpu, start, x):
+@contextlib.contextmanager
+def kink_patterns(record=None, enforce=None):
+    """The sides of every kink of a forward pass, in call order: each
+    LeakyReLU's pre-activation (> 0) and the L1 loss's residual x - rec
+    (> 0).  ``record`` (a list) gets each call's mask on the host;
+    ``enforce`` (such a list, as another device recorded it) makes each
+    call take that mask's side, in value and derivative, instead of its
+    own: exact arithmetic with that device's kink pattern."""
+    import torch
+    import torch.nn.functional as F
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
+        losses,
+    )
+
+    leaky, l1 = F.leaky_relu, losses.l1_elem
+    given = iter(enforce or ())
+
+    def side(v):
+        if record is not None:
+            record.append((v > 0).detach().cpu())
+        return None if enforce is None else next(given).to(v.device)
+
+    def leaky_relu(x, negative_slope=0.01, inplace=False):
+        mask = side(x)
+        if mask is None:
+            return leaky(x, negative_slope)
+        return torch.where(mask, x, negative_slope * x)
+
+    def l1_elem(x, x_hat):
+        mask = side(x - x_hat)
+        if mask is None:
+            return l1(x, x_hat)
+        return torch.where(mask, x - x_hat, x_hat - x)
+
+    F.leaky_relu, losses.l1_elem = leaky_relu, l1_elem
+    try:
+        yield
+    finally:
+        F.leaky_relu, losses.l1_elem = leaky, l1
+
+
+@contextlib.contextmanager
+def float64_compute():
+    """Every cast to float32 inside the block keeps a float64 tensor in
+    float64 (the layers' compute-dtype casts, ``Norm``'s statistics, the
+    decoder's output): a float64 model computes in float64 end to end."""
+    import torch
+
+    to = torch.Tensor.to
+
+    def to64(self, *args, **kwargs):
+        if self.dtype == torch.float64:
+            args = tuple(torch.float64 if a is torch.float32 else a
+                         for a in args)
+            if kwargs.get("dtype") is torch.float32:
+                kwargs["dtype"] = torch.float64
+        return to(self, *args, **kwargs)
+
+    torch.Tensor.to = to64
+    try:
+        yield
+    finally:
+        torch.Tensor.to = to
+
+
+def float64_gradients(trainer, start, x, enforce=None):
+    """d loss / d parameters in float64 on the CPU at ``start`` for the
+    batch ``x`` (train mode, as the step's forward), with the kink pattern
+    ``enforce`` or float64's own."""
+    import torch
+
+    model = copy.deepcopy(trainer.model).cpu()
+    model.load_state_dict(start)
+    model.double().train()
+    x64 = x.double()
+    with float64_compute(), kink_patterns(enforce=enforce):
+        outputs = model(x64, None)
+        loss = trainer.compute_losses(outputs, {"x": x64})["loss"]
+    check(loss.dtype == torch.float64, f"float64 loss is {loss.dtype}")
+    names, params = zip(*model.named_parameters())
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def flipped_gradients(card, cpu, start, x, kinks):
     """Why step 1's parameters differ by more than 1e-5 between the card
-    and the CPU (outside the BN-fed conv biases).  Prints, for those
-    elements, their |grad| and how many took opposite gradient signs, and
-    for their tensors the card-vs-CPU gradient difference (median, max)
-    beside float32 rounding (2^-23 of the tensor's largest |grad|); then
-    the pixels of the batch whose residual x - rec has opposite signs on
-    the two devices (the L1 loss's kink) in a train-mode forward pass from
-    ``start``."""
+    and the CPU (outside the BN-fed conv biases).  ``kinks`` are the two
+    devices' kink patterns of the step's forward (``kink_patterns``).
+    Prints, for those elements, their |grad| and how many took opposite
+    gradient signs, and for their tensors the card-vs-CPU gradient
+    difference (median, max) beside float32 rounding (2^-23 of the
+    tensor's largest |grad|); the kinks that take the other side on the
+    card, per layer; and tells each element apart, from the CPU's float64
+    gradients at the same start (``float64_gradients``) with float64's
+    own kink pattern (g64), the card's (g64_card) and the CPU's (g64_cpu).
+    A tensor's float32 error is the larger of max |g_card - g64_card| and
+    max |g_cpu - g64_cpu| over its elements: what float32's summation
+    order leaves once each device's own kinks are given; it must stay
+    within GRAD64_RTOL of the tensor's largest |g64|, or the device's
+    gradient is wrong.  Each element is then
+
+      * a kink: the two devices' kink patterns move its exact gradient
+        by more than the float32 error (|g64_card - g64_cpu| beyond it),
+        so a kink on its path takes the other side on the card;
+      * rounding: otherwise, where its float64 gradient (with float64's,
+        the card's or the CPU's kink pattern) is no larger than the
+        float32 error, so float32 does not define its sign.
+
+    An element that is neither, or a float32 error beyond GRAD64_RTOL, is
+    a fault.  Returns (elements, rounding, kink, neither)."""
     import torch
 
     eps32 = float(torch.finfo(torch.float32).eps)
+    card_kinks, cpu_kinks = kinks
+    g64 = float64_gradients(cpu, start, x)
+    g64_card = float64_gradients(cpu, start, x, card_kinks)
+    g64_cpu = float64_gradients(cpu, start, x, cpu_kinks)
     n, n_sign, g_max, rel_max, ulp_max, dg_med, dg_max = (
         0, 0, 0.0, 0.0, 0.0, 0.0, 0.0)
+    n_round, n_kink, neither, err_max = 0, 0, [], 0.0
     tensors = []
     card_params = dict(card.model.named_parameters())
     for k, p in cpu.model.named_parameters():
         q = card_params[k]
-        mask = (q.detach().cpu() - p.detach()).abs() > 1e-5
-        if free_bias(k) or p.grad is None or not mask.any():
+        if free_bias(k) or p.grad is None:
             continue
         g, gc = p.grad, q.grad.cpu()
+        err32 = max(float((gc.double() - g64_card[k]).abs().max()),
+                    float((g.double() - g64_cpu[k]).abs().max()))
+        scale = float(g64[k].abs().max())
+        if err32 > GRAD64_RTOL * scale:
+            neither.append(f"{k}: float32 error {err32:.3e} against its "
+                           f"largest |g64| {scale:.3e}")
+        err_max = max(err_max, err32 / scale)
+        mask = (q.detach().cpu() - p.detach()).abs() > 1e-5
+        if not mask.any():
+            continue
         dg = (gc - g).abs()
         top = float(g.abs().max())
         n += int(mask.sum())
@@ -820,29 +951,47 @@ def flipped_gradients(card, cpu, start, x):
         ulp_max = max(ulp_max, eps32 * top)
         dg_med = max(dg_med, float(dg.median()))
         dg_max = max(dg_max, float(dg.max()))
+        kink = mask & ((g64_card[k] - g64_cpu[k]).abs() > err32)
+        small = torch.minimum(torch.minimum(g64[k].abs(), g64_card[k].abs()),
+                              g64_cpu[k].abs())
+        rounding = mask & ~kink & (small <= err32)
+        n_round += int(rounding.sum())
+        n_kink += int(kink.sum())
+        left = mask & ~rounding & ~kink
+        if left.any():
+            neither.append(f"{k}: {int(left.sum())} elements, |g64| up to "
+                           f"{float(g64[k][left].abs().max()):.3e} against "
+                           f"the float32 error {err32:.3e}")
         tensors.append(f"{k} {int(mask.sum())}/{p.numel()}: max|g| there "
                        f"{float(g[mask].abs().max()):.2e}; |dg| median "
                        f"{float(dg.median()):.2e}, max {float(dg.max()):.2e};"
-                       f" float32 rounding {eps32 * top:.2e}")
-    res = {}
-    for name, trainer in (("card", card), ("cpu", cpu)):
-        model = copy.deepcopy(trainer.model)
-        model.load_state_dict(start)
-        model.train()
-        with torch.no_grad():
-            xd = x.to(trainer.device)
-            rec = model(xd, None)[trainer.spec.reconstruction_key]
-            res[name] = (xd - rec).cpu()
-    flips = int((torch.sign(res["card"]) != torch.sign(res["cpu"])).sum())
+                       f" float32 rounding {eps32 * top:.2e}; float32 "
+                       f"error {err32:.2e}; rounding "
+                       f"{int(rounding.sum())}, kink {int(kink.sum())}")
+    layers = []
+    for i, (a, b) in enumerate(zip(card_kinks, cpu_kinks)):
+        what = ("residual x - rec" if i == len(card_kinks) - 1
+                else f"LeakyReLU {i}")
+        layers.append(f"{what} {tuple(a.shape)}: {int((a != b).sum())}")
+    flips = int((card_kinks[-1] != cpu_kinks[-1]).sum())
     print(f"[train-card-vs-cpu] step 1: {n} elements beyond 1e-5 in "
           f"{len(tensors)} tensors, {n_sign} with opposite gradient signs; "
           f"their |grad| up to {g_max:.3e} ({rel_max:.2e} of their tensor's "
           f"largest); card-vs-CPU gradient difference in those tensors: "
           f"median up to {dg_med:.3e}, max {dg_max:.3e}; float32 rounding "
           f"up to {ulp_max:.3e}; residual signs differing at {flips} of "
-          f"{res['cpu'].numel()} pixels")
+          f"{card_kinks[-1].numel()} pixels")
+    print(f"[train-card-vs-cpu] step 1 split against float64 gradients: "
+          f"{n_round} rounding, {n_kink} kink, {n - n_round - n_kink} "
+          f"neither, of {n} elements; float32 error against float64 up to "
+          f"{err_max:.2e} of a tensor's largest gradient (bound "
+          f"{GRAD64_RTOL}); kinks on the other side on the card "
+          f"(card vs CPU): " + "; ".join(layers))
     for line in tensors:
         print(f"[train-card-vs-cpu]   {line}")
+    check(not neither, "step 1: elements neither rounding nor kink: "
+          + "; ".join(neither))
+    return n, n_round, n_kink, n - n_round - n_kink
 
 
 def phase_train_card_vs_cpu():
@@ -897,13 +1046,17 @@ def phase_train_card_vs_cpu():
         card.model.load_state_dict(start)
         card.optimizer.load_state_dict(
             copy.deepcopy(cpu.optimizer.state_dict()))
-        forced.append((step(card, rows), step(cpu, rows)))
-        a, b = forced[-1]
+        kinks = ([], [])  # recorded at step 1
+        with kink_patterns(record=kinks[0] if t == 1 else None):
+            a = step(card, rows)
+        with kink_patterns(record=kinks[1] if t == 1 else None):
+            b = step(cpu, rows)
+        forced.append((a, b))
         check(abs(a - b) <= TOL * abs(b), f"step {t}: loss card {a} vs cpu "
               f"{b}")
         if t == 1:
-            flipped_gradients(card, cpu, start,
-                              torch.from_numpy(pool[rows]))
+            split = flipped_gradients(card, cpu, start,
+                                      torch.from_numpy(pool[rows]), kinks)
         stats.append(compare_training(card.model.state_dict(),
                                       cpu.model.state_dict(), start, config,
                                       t))
@@ -921,7 +1074,7 @@ def phase_train_card_vs_cpu():
               f"in one tensor {frac:.3e}, bound {KINK_FRACTION}), largest "
               f"relative update error {upd:.3e} (bound {UPDATE_TOL}); BN-fed "
               f"conv biases max|diff| {worst_fed:.3e} (bound {bound:.3e})")
-    return rel
+    return rel, split
 
 
 def _device_time_us(event):
@@ -3161,7 +3314,6 @@ def phase_validate_data(base):
     """c. ``validate-data -d BRAINWEB --dir D --deep`` through the CLI on a
     BrainWeb-layout phantom tree (exit 0, 4 patients) and on an empty
     directory (a non-zero exit with the layout hint)."""
-    import contextlib
     import io
 
     from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
@@ -3756,6 +3908,126 @@ def phase_measurement():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9n: the seed spread of the presets whose --tpu-fast and parity H100
+# rows lie apart, against the JAX package's CPU spreads
+
+SPREAD_PRESETS = ("AAE", "fAnoGAN", "AnoVAEGAN")
+SPREAD_SEEDS = (42, 1, 2, 3, 4)
+
+
+def spread_band(row, key, tolerances):
+    """The JAX spread of ``key`` widened by the table's tolerance:
+    absolute for the curve metrics, relative for the loss, as
+    ``run_all.compare_scoreboard`` applies them."""
+    lo, hi = row[key]["min"], row[key]["max"]
+    tol = tolerances[key]
+    if key == "finalTrainLoss":
+        return lo - tol * abs(lo), hi + tol * abs(hi)
+    return lo - tol, hi + tol
+
+
+def phase_seed_spread(base):
+    """n. ``AAE``, ``fAnoGAN`` and ``AnoVAEGAN`` from each of
+    SPREAD_SEEDS (``Config.seed``: init and shuffling) through the CLI at
+    the quality tables' recipe with ``--tpu-fast`` and in parity, under
+    ``run_all``'s deterministic settings (PyTorch's default TF32 state):
+    30 runs, each printed beside the JAX package's CPU spread of its
+    profile (``scoreboards/jax_cpu_seeds_fast.json``,
+    ``jax_cpu_seeds.json``).  Every metric's range over the seeds must
+    overlap that spread widened by the tables' tolerances; one median
+    launch per evaluated volume.  Returns (median launches, wall s)."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import (
+        cli,
+        run_all,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+
+    jax_spread = {}
+    for fast, file in ((True, "jax_cpu_seeds_fast.json"),
+                       (False, "jax_cpu_seeds.json")):
+        with open(os.path.join(run_all.SCOREBOARDS, file)) as f:
+            jax_spread[fast] = json.load(f)["presets"]
+    with open(os.path.join(run_all.SCOREBOARDS,
+                           "expected_h100_fast.json")) as f:
+        tolerances = json.load(f)["tolerances"]
+    expected = 2 * len(SPREAD_SEEDS) * sweep_launches(SPREAD_PRESETS)
+    root = tempfile.mkdtemp(dir=base)
+    original = cli.preset
+    rows = {}
+    median.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        for fast in (True, False):
+            for name in SPREAD_PRESETS:
+                for seed in SPREAD_SEEDS:
+                    cli.preset = (lambda n, s=seed, **kw:
+                                  original(n, **dict(kw, seed=s)))
+                    work = tempfile.mkdtemp(dir=root)
+                    paths = os.path.join(work, "paths.json")
+                    with open(paths, "w") as f:
+                        json.dump({"SAMPLEDIR": os.path.join(work, "s"),
+                                   "CHECKPOINTDIR": os.path.join(work, "c")},
+                                  f)
+                    metrics = os.path.join(work, "metrics.jsonl")
+                    r0 = time.perf_counter()
+                    with run_all.reproducible("cuda"):
+                        rc = cli.main([
+                            "--preset", name, *SWEEP_RECIPE, "--device",
+                            DEVICE, "-c", paths, "--workdir",
+                            os.path.join(work, "w"), "--metrics-out",
+                            metrics, *(["--tpu-fast"] if fast else [])])
+                    wall = time.perf_counter() - r0
+                    check(rc == 0, f"{name} seed {seed} fast {fast}: CLI "
+                                   f"exited {rc}")
+                    with open(metrics) as f:
+                        first = json.loads(f.readline())
+                    rows[fast, name, seed] = first
+                    print(f"[spread {'tpu-fast' if fast else 'parity'}] "
+                          f"{name} seed {seed}: {wall:.1f} s; "
+                          + "; ".join(
+                              f"{k} " + ("-" if first.get(k) is None
+                                         else f"{first[k]:.4f}")
+                              + ("" if jax_spread[fast][name][k] is None
+                                 else " (JAX CPU {:.4f}-{:.4f})".format(
+                                     jax_spread[fast][name][k]["min"],
+                                     jax_spread[fast][name][k]["max"]))
+                              for k in run_all.METRIC_KEYS))
+    finally:
+        cli.preset = original
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = median.LAUNCHES
+    check(launches == expected, f"seed spread: median launched {launches} "
+                                f"times for {expected} evaluated volumes")
+    faults = []
+    for fast in (True, False):
+        label = "tpu-fast" if fast else "parity"
+        for name in SPREAD_PRESETS:
+            ranges = []
+            for key in run_all.METRIC_KEYS:
+                vals = [rows[fast, name, s].get(key) for s in SPREAD_SEEDS]
+                if jax_spread[fast][name][key] is None:
+                    check(all(v is None for v in vals),
+                          f"{label} {name}: {key} {vals}")
+                    continue
+                lo, hi = spread_band(jax_spread[fast][name], key, tolerances)
+                if not (max(vals) >= lo and min(vals) <= hi):
+                    faults.append(f"{label} {name} {key}: card "
+                                  f"{min(vals):.4f}-{max(vals):.4f} outside "
+                                  f"the JAX band {lo:.4f}-{hi:.4f}")
+                ranges.append(f"{key} {min(vals):.4f}-{max(vals):.4f} "
+                              f"(JAX band {lo:.4f}-{hi:.4f})")
+            print(f"[spread {label}] {name} over seeds {SPREAD_SEEDS}: "
+                  + "; ".join(ranges))
+    check(not faults, "seed spread: " + "; ".join(faults))
+    print(f"[spread] {len(rows)} runs in {wall:.1f} s; median launches "
+          f"{launches}")
+    return launches, wall
+
+
 def phase_profiles():
     """10. The queued profiles, after every timing: printed, kept in
     PROFILE_OUT; returns each one's device busy share by key."""
@@ -3814,8 +4086,8 @@ def main():
             torch.backends.cuda.matmul.allow_tf32 = tf32
         launches += timed_phase("5 train + evaluate", phase_train_evaluate,
                                 tmp, scans[0])
-        train_rel = timed_phase("6 train card vs cpu",
-                                phase_train_card_vs_cpu)
+        train_rel, train_split = timed_phase("6 train card vs cpu",
+                                             phase_train_card_vs_cpu)
         sps, eval_ms, split = timed_phase("7 timings", phase_timings, *tf32)
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -3882,6 +4154,12 @@ def main():
         launches += timed_phase("9l-b quickstart notebook", phase_notebook,
                                 tmp)
         bench = timed_phase("9m measurement layer", phase_measurement)
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        spread_launches, spread_s = timed_phase(
+            "9n seed spread (AAE, fAnoGAN, AnoVAEGAN)", phase_seed_spread,
+            tmp)
+        launches += spread_launches
         busy = timed_phase("10 profiles", phase_profiles)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3894,7 +4172,9 @@ def main():
           f"{100 * busy['AE train']:.1f} %), warm evaluate() "
           f"{eval_ms:.1f} ms for the TEST cohort (device busy "
           f"{100 * busy['AE evaluate']:.1f} %), train card vs CPU max "
-          f"relative loss diff {train_rel:.3e}")
+          f"relative loss diff {train_rel:.3e}; step 1's {train_split[0]} "
+          f"elements beyond 1e-5: {train_split[1]} rounding, "
+          f"{train_split[2]} kink")
     print(f"[summary] VAE family: warm VAE train {vae_sps[8]:.1f} slices/s "
           f"at batch 8 (device busy {100 * busy['VAE b8 train']:.1f} %), "
           f"{vae_sps[128]:.1f} at batch 128 (busy "
@@ -3949,6 +4229,10 @@ def main():
     print(f"[summary] real-data protocol (BrainWeb MINC1, MSLUB and "
           f"MSISBI2015 NIfTI at 181x217x181): the AE preset's CLI run "
           f"{real_cli_s:.1f} s; the quickstart notebook ran on the card")
+    print(f"[summary] seed spread of {', '.join(SPREAD_PRESETS)} over "
+          f"{len(SPREAD_SEEDS)} seeds, --tpu-fast and parity: "
+          f"{spread_s:.1f} s, every metric's range overlapping the JAX "
+          f"CPU spread widened by the tolerances")
     print(f"[summary] measurement layer at a small size: bench_torch.py "
           f"{bench['value']} slices/s, vs_baseline {bench['vs_baseline']}, "
           f"{bench['detail']['median5_launches']} median kernel launches in "

@@ -271,3 +271,50 @@ def test_run_all_ae_ce_on_card_within_the_h100_table(cuda, tmp_path):
         "-w", "32", "-g", "32", "-s", "0", "-e", "8", "-z", "16", "-b", "8",
         "-O", "0.5", "--precision", "float32", "--device", "cuda", "-c",
         str(paths)]) == 0
+
+
+@pytest.mark.gpu
+def test_step_one_differences_are_rounding_or_kinks(cuda):
+    """One float32 ``AE`` step (TF32 off, dropout 0) at 32x32, batch 8, on
+    the card and on the CPU from one start, each recording its kink
+    pattern: every parameter element that differs by more than 1e-5 is
+    rounding or a kink against the CPU's float64 gradients with each
+    device's kink pattern, and each tensor's float32 gradients lie within
+    ``GRAD64_RTOL`` of float64's (``chip_smoke.flipped_gradients``, phase
+    6 at the preset's width)."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    chip_smoke = importlib.import_module("chip_smoke")
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.cli import preset
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        config = preset("AE", batchsize=8, dropout_rate=0.0, zDim=16,
+                        compute_dtype="float32", outputWidth=32,
+                        outputHeight=32)
+        card, cpu = (get_trainer("AE")(config, device=d)
+                     for d in ("cuda", "cpu"))
+        cpu.init_state()
+        card.init_state()
+        start = {k: v.detach().clone()
+                 for k, v in cpu.model.state_dict().items()}
+        card.model.load_state_dict(start)
+        x = torch.from_numpy(np.random.default_rng(3).uniform(
+            size=(8, 32, 32, 1)).astype(np.float32))
+        kinks = ([], [])
+        for trainer, record in ((card, kinks[0]), (cpu, kinks[1])):
+            with chip_smoke.kink_patterns(record=record):
+                trainer.train_step({"x": x.to(trainer.device)})
+        n, rounding, kink, neither = chip_smoke.flipped_gradients(
+            card, cpu, start, x, kinks)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    assert neither == 0 and rounding + kink == n
+    assert len(kinks[0]) == len(kinks[1]) > 1

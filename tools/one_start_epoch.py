@@ -17,6 +17,11 @@ torch's), i.e. the updates per group over the epoch:
 
     python tools/one_start_epoch.py --preset AAE
     python tools/one_start_epoch.py --preset constrainedAAE_Chen --resnet-dim 8
+    python tools/one_start_epoch.py --preset fAnoGAN --tpu-fast
+
+``--tpu-fast`` turns on the space-to-depth stem and the depth-to-space
+head (``spaceToDepthStem``, ``depthToSpaceHead``) in both packages, as the
+CLIs' flag does.
 
 Runs on the CPU; needs both packages.
 """
@@ -29,6 +34,7 @@ import dataclasses
 import json
 import os
 import sys
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -152,10 +158,15 @@ def _port_counts(optimizer) -> dict:
             for g, o in groups.items()}
 
 
-def one_epoch(name: str, patients: int = 8, dim: int = 0) -> dict:
+FAST = dict(spaceToDepthStem=True, depthToSpaceHead=True)
+
+
+def one_epoch(name: str, patients: int = 8, dim: int = 0,
+              overrides: Optional[dict] = None) -> dict:
     """One epoch of preset ``name`` at the recipe in both packages from
-    the JAX init with the draws given; returns both histories and update
-    counts."""
+    the JAX init with the draws given; ``overrides`` are Config fields set
+    on top of the recipe (``FAST`` for the fast profile).  Returns both
+    histories and update counts."""
     import jax
 
     from unsupervised_anomaly_detection_brain_mri_tpu.config import (
@@ -190,7 +201,7 @@ def one_epoch(name: str, patients: int = 8, dim: int = 0) -> dict:
 
     config = preset(name).replace(
         batchsize=8, zDim=16, outputWidth=32, outputHeight=32, numEpochs=1,
-        compute_dtype="float32", dropout_rate=0.0)
+        compute_dtype="float32", dropout_rate=0.0, **(overrides or {}))
     # the CLI's healthy cohort at the recipe (cli.build_dataset)
     synth = dict(numPatients=patients, imageSize=32, numSlices=8,
                  targetSize=32, partition={"TRAIN": 0.7, "VAL": 0.3,
@@ -225,11 +236,14 @@ def main(argv=None) -> int:
     ap.add_argument("--resnet-dim", type=int, default=0,
                     help="build Chen's and Schlegl's ResNets at this dim "
                          "(default: the registries' 64)")
+    ap.add_argument("--tpu-fast", action="store_true",
+                    help="the space-to-depth stem and depth-to-space head")
     args = ap.parse_args(argv)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    out = one_epoch(args.preset, args.patients, args.resnet_dim)
+    out = one_epoch(args.preset, args.patients, args.resnet_dim,
+                    FAST if args.tpu_fast else None)
     for j, t in zip(out["jax"], out["port"]):
         keys = sorted((set(j) | set(t)) - {"epoch", "phase"})
         print(json.dumps({"epoch": j["epoch"], "phase": j["phase"],

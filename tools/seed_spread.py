@@ -16,7 +16,14 @@ the scoreboards compare) and the wall of each run as JSON:
         --seeds 42,1,2,3,4 --out spread_torch.json
 
 ``--package jax`` runs the JAX package, ``--package torch`` the PyTorch
-port, both on the CPU.  ``--summarize A.json B.log
+port, on the CPU unless ``--device cuda`` (the port only) asks for the
+card.  ``--flags`` appends CLI flags to the recipe of every run and
+records them in the output's ``recipe``, e.g. the fast profile:
+
+    python tools/seed_spread.py --package jax --flags=--tpu-fast \
+        --presets AAE,fAnoGAN,AnoVAEGAN --out spread_jax_fast.json
+
+``--summarize A.json B.log
 --out S.json`` merges runs of one package (their JSON, or the lines a run
 prints, for a run cut short) into the per-metric min, median and max that
 ``scoreboards/jax_cpu_seeds.json`` holds.
@@ -42,23 +49,36 @@ RECIPE = ["--synthetic", "-E", "1", "-w", "32", "-g", "32", "-s", "0",
 METRIC_KEYS = ("AUROC", "AUPRC", "bestDice", "finalTrainLoss")
 
 
-def _package(name: str):
+def _package(name: str, device: str = "cpu"):
     """(the module whose ``preset`` the CLI calls, CLI main, extra CLI
     flags) of one package."""
     if name == "jax":
+        if device != "cpu":
+            raise SystemExit("--device is the port's: the JAX package runs "
+                             "on the CPU here")
         import jax
 
         jax.config.update("jax_platforms", "cpu")
         from unsupervised_anomaly_detection_brain_mri_tpu import cli, config
 
         return config, cli.main, []
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli, run_all
 
-    return cli, cli.main, ["--device", "cpu"]
+    def cli_main(argv):
+        # run_all's deterministic settings: one intra-op thread on the CPU,
+        # deterministic cuDNN and PyTorch algorithms on the card
+        with run_all.reproducible(device.split(":")[0]):
+            return cli.main(argv)
+
+    return cli, cli_main, ["--device", device]
 
 
-def run(package: str, presets, seeds) -> dict:
-    holder, cli_main, extra = _package(package)
+def run(package: str, presets, seeds, flags=(), device: str = "cpu",
+        root=None) -> dict:
+    """One CLI run per (preset, seed), each in a fresh directory under
+    ``root`` (default: the system's temporary directory)."""
+    holder, cli_main, extra = _package(package, device)
+    extra = extra + list(flags)
     original = holder.preset
     out = {"package": package, "recipe": RECIPE + extra,
            "commit": _commit(), "seeds": list(seeds), "presets": {}}
@@ -69,7 +89,8 @@ def run(package: str, presets, seeds) -> dict:
             for seed in seeds:
                 holder.preset = (lambda n, s=seed, **kw:
                                  original(n, **dict(kw, seed=s)))
-                work = tempfile.mkdtemp(prefix=f"spread_{name}_{seed}_")
+                work = tempfile.mkdtemp(prefix=f"spread_{name}_{seed}_",
+                                        dir=root)
                 os.chdir(work)
                 metrics = os.path.join(work, "metrics.jsonl")
                 t0 = time.perf_counter()
@@ -142,6 +163,11 @@ def main(argv=None) -> int:
     ap.add_argument("--package", choices=("jax", "torch"), default="torch")
     ap.add_argument("--presets", default="")
     ap.add_argument("--seeds", default="42,1,2,3,4")
+    ap.add_argument("--flags", default="",
+                    help="extra CLI flags appended to the recipe, "
+                         "space-separated (e.g. --flags=--tpu-fast)")
+    ap.add_argument("--device", default="cpu",
+                    help="the port's device (cpu or cuda)")
     ap.add_argument("--summarize", nargs="*", default=None)
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
@@ -149,7 +175,8 @@ def main(argv=None) -> int:
         result = summarize([_load(p) for p in args.summarize])
     else:
         result = run(args.package, [p for p in args.presets.split(",") if p],
-                     [int(s) for s in args.seeds.split(",")])
+                     [int(s) for s in args.seeds.split(",")],
+                     args.flags.split(), args.device)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     return 0
