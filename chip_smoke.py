@@ -178,9 +178,9 @@ KINK_FLOOR = 3
 UPDATE_TOL = 0.25
 FREE_RUN_TOL = 1e-3
 # a step's float32 gradients against float64 with the same kink pattern,
-# per tensor, as a fraction of its largest float64 gradient (up to 1.2e-4
-# on the CPU for the AE at 128x128: BatchNorm's backward cancels); a wrong
-# gradient is off by its whole size
+# per tensor, as a fraction of its largest float64 gradient (the AE at
+# 128x128: up to 1.2e-4 on the CPU, 5.6e-4 on an H100; BatchNorm's
+# backward cancels); a wrong gradient is off by its whole size
 GRAD64_RTOL = 1e-2
 TIMED_STEPS = 100
 KERNEL_BATCH = 10  # back-to-back kernel calls per pair of CUDA events
@@ -805,14 +805,18 @@ def compare_training(card, cpu, start, config, t, bound_of=None):
     return bound, worst_fed, worst, beyond, worst_frac, worst_upd
 
 
+RESIDUAL = "residual x - rec"
+
+
 @contextlib.contextmanager
 def kink_patterns(record=None, enforce=None):
     """The sides of every kink of a forward pass, in call order: each
-    LeakyReLU's pre-activation (> 0) and the L1 loss's residual x - rec
-    (> 0).  ``record`` (a list) gets each call's mask on the host;
-    ``enforce`` (such a list, as another device recorded it) makes each
-    call take that mask's side, in value and derivative, instead of its
-    own: exact arithmetic with that device's kink pattern."""
+    ReLU's and LeakyReLU's pre-activation (> 0) and the L1 loss's residual
+    x - rec (> 0).  ``record`` (a list) gets each call's (kind, mask on
+    the host); ``enforce`` (such a list, as another device recorded it)
+    makes each call take that mask's side, in value and derivative,
+    instead of its own: exact arithmetic with that device's kink
+    pattern."""
     import torch
     import torch.nn.functional as F
 
@@ -820,31 +824,40 @@ def kink_patterns(record=None, enforce=None):
         losses,
     )
 
-    leaky, l1 = F.leaky_relu, losses.l1_elem
+    relu, leaky, l1 = F.relu, F.leaky_relu, losses.l1_elem
     given = iter(enforce or ())
 
-    def side(v):
+    def side(v, kind):
         if record is not None:
-            record.append((v > 0).detach().cpu())
-        return None if enforce is None else next(given).to(v.device)
+            record.append((kind, (v > 0).detach().cpu()))
+        if enforce is None:
+            return None
+        given_kind, mask = next(given)
+        check(given_kind == kind, f"kink pattern: {kind} where the "
+                                  f"recorded pass had {given_kind}")
+        return mask.to(v.device)
+
+    def relu_(x, inplace=False):
+        mask = side(x, "ReLU")
+        return relu(x) if mask is None else torch.where(mask, x, 0 * x)
 
     def leaky_relu(x, negative_slope=0.01, inplace=False):
-        mask = side(x)
+        mask = side(x, "LeakyReLU")
         if mask is None:
             return leaky(x, negative_slope)
         return torch.where(mask, x, negative_slope * x)
 
     def l1_elem(x, x_hat):
-        mask = side(x - x_hat)
+        mask = side(x - x_hat, RESIDUAL)
         if mask is None:
             return l1(x, x_hat)
         return torch.where(mask, x - x_hat, x_hat - x)
 
-    F.leaky_relu, losses.l1_elem = leaky_relu, l1_elem
+    F.relu, F.leaky_relu, losses.l1_elem = relu_, leaky_relu, l1_elem
     try:
         yield
     finally:
-        F.leaky_relu, losses.l1_elem = leaky, l1
+        F.relu, F.leaky_relu, losses.l1_elem = relu, leaky, l1
 
 
 @contextlib.contextmanager
@@ -968,19 +981,19 @@ def flipped_gradients(card, cpu, start, x, kinks):
                        f" float32 rounding {eps32 * top:.2e}; float32 "
                        f"error {err32:.2e}; rounding "
                        f"{int(rounding.sum())}, kink {int(kink.sum())}")
-    layers = []
-    for i, (a, b) in enumerate(zip(card_kinks, cpu_kinks)):
-        what = ("residual x - rec" if i == len(card_kinks) - 1
-                else f"LeakyReLU {i}")
-        layers.append(f"{what} {tuple(a.shape)}: {int((a != b).sum())}")
-    flips = int((card_kinks[-1] != cpu_kinks[-1]).sum())
+    layers, flips, pixels = [], 0, 0
+    for i, ((kind, a), (_, b)) in enumerate(zip(card_kinks, cpu_kinks)):
+        layers.append(f"{kind} {i} {tuple(a.shape)}: {int((a != b).sum())}")
+        if kind == RESIDUAL:
+            flips += int((a != b).sum())
+            pixels += a.numel()
     print(f"[train-card-vs-cpu] step 1: {n} elements beyond 1e-5 in "
           f"{len(tensors)} tensors, {n_sign} with opposite gradient signs; "
           f"their |grad| up to {g_max:.3e} ({rel_max:.2e} of their tensor's "
           f"largest); card-vs-CPU gradient difference in those tensors: "
           f"median up to {dg_med:.3e}, max {dg_max:.3e}; float32 rounding "
           f"up to {ulp_max:.3e}; residual signs differing at {flips} of "
-          f"{card_kinks[-1].numel()} pixels")
+          f"{pixels} pixels")
     print(f"[train-card-vs-cpu] step 1 split against float64 gradients: "
           f"{n_round} rounding, {n_kink} kink, {n - n_round - n_kink} "
           f"neither, of {n} elements; float32 error against float64 up to "
@@ -3916,35 +3929,28 @@ SPREAD_PRESETS = ("AAE", "fAnoGAN", "AnoVAEGAN")
 SPREAD_SEEDS = (42, 1, 2, 3, 4)
 
 
-def spread_band(row, key, tolerances):
-    """The JAX spread of ``key`` widened by the table's tolerance:
-    absolute for the curve metrics, relative for the loss, as
-    ``run_all.compare_scoreboard`` applies them."""
-    lo, hi = row[key]["min"], row[key]["max"]
-    tol = tolerances[key]
-    if key == "finalTrainLoss":
-        return lo - tol * abs(lo), hi + tol * abs(hi)
-    return lo - tol, hi + tol
-
-
 def phase_seed_spread(base):
     """n. ``AAE``, ``fAnoGAN`` and ``AnoVAEGAN`` from each of
-    SPREAD_SEEDS (``Config.seed``: init and shuffling) through the CLI at
-    the quality tables' recipe with ``--tpu-fast`` and in parity, under
-    ``run_all``'s deterministic settings (PyTorch's default TF32 state):
-    30 runs, each printed beside the JAX package's CPU spread of its
-    profile (``scoreboards/jax_cpu_seeds_fast.json``,
-    ``jax_cpu_seeds.json``).  Every metric's range over the seeds must
-    overlap that spread widened by the tables' tolerances; one median
+    SPREAD_SEEDS (``Config.seed``: init and shuffling) through
+    ``tools/seed_spread.py`` on the card (the CLI at the quality tables'
+    recipe under ``run_all``'s deterministic settings, PyTorch's default
+    TF32 state), with ``--tpu-fast`` and in parity: 30 runs, each printed
+    beside the JAX package's CPU spread of its profile
+    (``scoreboards/jax_cpu_seeds_fast.json``, ``jax_cpu_seeds.json``).
+    Every metric's range over the seeds must overlap that spread widened
+    by the tables' tolerances (``run_all.tolerance_band``); one median
     launch per evaluated volume.  Returns (median launches, wall s)."""
+    import importlib.util
+
     import torch
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch import (
-        cli,
-        run_all,
-    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch import run_all
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
 
+    spec = importlib.util.spec_from_file_location(
+        "seed_spread", os.path.join(ROOT, "tools", "seed_spread.py"))
+    seed_spread = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(seed_spread)
     jax_spread = {}
     for fast, file in ((True, "jax_cpu_seeds_fast.json"),
                        (False, "jax_cpu_seeds.json")):
@@ -3955,48 +3961,14 @@ def phase_seed_spread(base):
         tolerances = json.load(f)["tolerances"]
     expected = 2 * len(SPREAD_SEEDS) * sweep_launches(SPREAD_PRESETS)
     root = tempfile.mkdtemp(dir=base)
-    original = cli.preset
-    rows = {}
+    runs = {}
     median.LAUNCHES = 0
     t0 = time.perf_counter()
-    try:
-        for fast in (True, False):
-            for name in SPREAD_PRESETS:
-                for seed in SPREAD_SEEDS:
-                    cli.preset = (lambda n, s=seed, **kw:
-                                  original(n, **dict(kw, seed=s)))
-                    work = tempfile.mkdtemp(dir=root)
-                    paths = os.path.join(work, "paths.json")
-                    with open(paths, "w") as f:
-                        json.dump({"SAMPLEDIR": os.path.join(work, "s"),
-                                   "CHECKPOINTDIR": os.path.join(work, "c")},
-                                  f)
-                    metrics = os.path.join(work, "metrics.jsonl")
-                    r0 = time.perf_counter()
-                    with run_all.reproducible("cuda"):
-                        rc = cli.main([
-                            "--preset", name, *SWEEP_RECIPE, "--device",
-                            DEVICE, "-c", paths, "--workdir",
-                            os.path.join(work, "w"), "--metrics-out",
-                            metrics, *(["--tpu-fast"] if fast else [])])
-                    wall = time.perf_counter() - r0
-                    check(rc == 0, f"{name} seed {seed} fast {fast}: CLI "
-                                   f"exited {rc}")
-                    with open(metrics) as f:
-                        first = json.loads(f.readline())
-                    rows[fast, name, seed] = first
-                    print(f"[spread {'tpu-fast' if fast else 'parity'}] "
-                          f"{name} seed {seed}: {wall:.1f} s; "
-                          + "; ".join(
-                              f"{k} " + ("-" if first.get(k) is None
-                                         else f"{first[k]:.4f}")
-                              + ("" if jax_spread[fast][name][k] is None
-                                 else " (JAX CPU {:.4f}-{:.4f})".format(
-                                     jax_spread[fast][name][k]["min"],
-                                     jax_spread[fast][name][k]["max"]))
-                              for k in run_all.METRIC_KEYS))
-    finally:
-        cli.preset = original
+    for fast in (True, False):
+        runs[fast] = seed_spread.run(
+            "torch", SPREAD_PRESETS, SPREAD_SEEDS,
+            ["--tpu-fast"] if fast else [], device=DEVICE,
+            root=root)["presets"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = median.LAUNCHES
@@ -4006,14 +3978,28 @@ def phase_seed_spread(base):
     for fast in (True, False):
         label = "tpu-fast" if fast else "parity"
         for name in SPREAD_PRESETS:
+            spread = jax_spread[fast][name]
+            rows = [runs[fast][name][str(s)] for s in SPREAD_SEEDS]
+            for seed, row in zip(SPREAD_SEEDS, rows):
+                check(row["rc"] == 0, f"{label} {name} seed {seed}: CLI "
+                                      f"exited {row['rc']}")
+                print(f"[spread {label}] {name} seed {seed}: "
+                      f"{row['wall_s']} s; " + "; ".join(
+                          f"{k} " + ("-" if row[k] is None
+                                     else f"{row[k]:.4f}")
+                          + ("" if spread[k] is None
+                             else " (JAX CPU {:.4f}-{:.4f})".format(
+                                 spread[k]["min"], spread[k]["max"]))
+                          for k in run_all.METRIC_KEYS))
             ranges = []
             for key in run_all.METRIC_KEYS:
-                vals = [rows[fast, name, s].get(key) for s in SPREAD_SEEDS]
-                if jax_spread[fast][name][key] is None:
+                vals = [row[key] for row in rows]
+                if spread[key] is None:
                     check(all(v is None for v in vals),
                           f"{label} {name}: {key} {vals}")
                     continue
-                lo, hi = spread_band(jax_spread[fast][name], key, tolerances)
+                lo, hi = run_all.tolerance_band(
+                    spread[key]["min"], spread[key]["max"], key, tolerances)
                 if not (max(vals) >= lo and min(vals) <= hi):
                     faults.append(f"{label} {name} {key}: card "
                                   f"{min(vals):.4f}-{max(vals):.4f} outside "
@@ -4023,8 +4009,8 @@ def phase_seed_spread(base):
             print(f"[spread {label}] {name} over seeds {SPREAD_SEEDS}: "
                   + "; ".join(ranges))
     check(not faults, "seed spread: " + "; ".join(faults))
-    print(f"[spread] {len(rows)} runs in {wall:.1f} s; median launches "
-          f"{launches}")
+    print(f"[spread] {2 * len(SPREAD_PRESETS) * len(SPREAD_SEEDS)} runs in "
+          f"{wall:.1f} s; median launches {launches}")
     return launches, wall
 
 

@@ -14,13 +14,19 @@ float32, and the fast profile's quality spread.
   statistic within twice Adam's largest steps and at most KINK_FRACTION of
   the elements beyond 1e-5 (the BatchNorm-fed biases and the image
   critic's output bias, whose true gradient is zero, to the Adam bound
-  only), and each group's update count.  The
-  critics run ``d_iters`` = 2 in both packages (the class attributes), so
-  that a batch takes seconds, and the ``AAE`` batch is one of the epochs
-  past 5, with one AE update: at 2 AE updates a LeakyReLU kink in the
-  second moves a few ``dec_dense`` weights by 1-2e-5, and the generator
-  loss that follows the critic updates by 3e-5 relative.  The epochs up to
-  5 (20 AE updates a batch) run in the one-epoch test below.
+  only), and each group's update count.  The critics run ``d_iters`` = 2
+  in both packages (the class attributes), so that a batch takes seconds;
+  ``AAE`` runs a batch past epoch 5 (one AE update) and one up to epoch 5
+  (``d_iters`` AE updates).  Where the port's batch falls outside these
+  bounds, the one ReLU or LeakyReLU pre-activation of the batch nearest
+  zero must lie within float32's rounding of it (below 2^-23 of its
+  tensor's largest), so that float32 does not define its side, and the
+  port's batch with that one element on the other side of its kink must
+  hold every bound.  The 2-AE-update ``AAE`` batch needs it: the decoder's
+  input ReLU at a pre-activation of 3.9e-8 in the second AE update takes
+  the other side in the JAX package, which moves a row of ``dec_dense`` by
+  up to 2e-5 and the generator loss by 2.9e-5 relative; with it flipped
+  the batch holds (``pytest -s`` prints both).
 * One epoch of ``AAE``, ``fAnoGAN`` and ``AnoVAEGAN`` from one start with
   both options (``tools/one_start_epoch.py``): every TRAIN and VAL loss
   within EPOCH_RTOL and equal update counts.
@@ -28,10 +34,11 @@ float32, and the fast profile's quality spread.
   presets, and the port's own seed-42 ``--tpu-fast`` run on the CPU, lie
   inside the JAX package's fast spread over five seeds
   (``scoreboards/jax_cpu_seeds_fast.json``, ``tools/seed_spread.py``),
-  widened by the tables' tolerances (``chip_smoke.spread_band``, which
-  phase 9n holds the card's five seeds to).
+  widened by the tables' tolerances (``run_all.tolerance_band``, which
+  phase 9n of ``chip_smoke.py`` holds the card's five seeds to).
 """
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -41,6 +48,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from test_torch_run_all import EPOCH_RTOL, JAX_TABLE, TABLES
 from test_torch_train import _adam_step_bound, _bn_fed_biases
@@ -91,8 +99,11 @@ FAST_GROUPS = {
 }
 SCHEDULES = {
     # preset, the JAX warm-up batches' step arguments, the compared batch's,
-    # the port's epoch for it (AAE past epoch 5: one AE update a batch)
+    # the port's epoch for it (AAE past epoch 5: one AE update a batch; up
+    # to epoch 5: d_iters)
     "AAE": ("AAE", ({"ae_iters": D_ITERS},) * 2, {"ae_iters": 1}, 6),
+    "AAE_two_ae_updates": ("AAE", ({"ae_iters": D_ITERS},) * 2,
+                           {"ae_iters": D_ITERS}, 1),
     "fAnoGAN_wgan": ("fAnoGAN", ({"phase2": False},) * 2, {"phase2": False},
                      0),
     "fAnoGAN_encoder": ("fAnoGAN", ({"phase2": False},) * 2
@@ -196,6 +207,82 @@ def _bounds(tt, cfg, before, after):
     return out, max(out.values())
 
 
+@contextlib.contextmanager
+def _kinks(record=None, flip=None):
+    """The port's ReLUs and LeakyReLUs in call order: ``record`` (a list)
+    gets each call's pre-activation; ``flip`` = (call, element) takes that
+    one element to the other side of its kink, in value and derivative."""
+    relu, leaky = F.relu, F.leaky_relu
+    calls = []
+
+    def side(x):
+        calls.append(None)
+        if record is not None:
+            record.append(x.detach().clone())
+        if flip is None or flip[0] != len(calls) - 1:
+            return None
+        mask = (x > 0).contiguous()
+        mask.view(-1)[flip[1]] ^= True
+        return mask
+
+    def relu_(x, inplace=False):
+        mask = side(x)
+        return relu(x) if mask is None else torch.where(mask, x, 0 * x)
+
+    def leaky_relu_(x, negative_slope=0.01, inplace=False):
+        mask = side(x)
+        return (leaky(x, negative_slope) if mask is None
+                else torch.where(mask, x, negative_slope * x))
+
+    F.relu, F.leaky_relu = relu_, leaky_relu_
+    try:
+        yield
+    finally:
+        F.relu, F.leaky_relu = relu, leaky
+
+
+def _nearest_zero(pre):
+    """(call, element, |pre-activation| over its tensor's largest,
+    |pre-activation|) of the recorded pre-activation nearest zero."""
+    best = None
+    for call, v in enumerate(pre):
+        a = v.abs().flatten()
+        element = int(a.argmin())
+        rel = float(a[element]) / float(a.max())
+        if best is None or rel < best[2]:
+            best = (call, element, rel, float(a[element]))
+    return best
+
+
+def _faults(tm, jm, got, want, bound, stat_bound):
+    """What holds the port's batch against JAX's, as the batch test's
+    docstring says: the faults, each loss's relative difference and the
+    largest parameter difference outside the free biases."""
+    faults, rel, worst = [], {}, (None, 0.0)
+    if set(tm) != set(jm):
+        return [f"metrics {sorted(tm)} vs {sorted(jm)}"], rel, worst
+    for k in jm:
+        t, j = float(tm[k]), float(jm[k])
+        rel[k] = abs(t - j) / abs(j) if j else abs(t - j)
+        if not abs(t - j) <= 1e-6 + LOSS_RTOL * abs(j):
+            faults.append(f"{k}: {t} vs {j}")
+    free = _bn_fed_biases(want) | {"disc_dense.bias"}
+    off = total = 0
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):  # Flax keeps no count
+            continue
+        diff = (got[k] - v).abs()
+        if not float(diff.max()) < bound.get(k, stat_bound):
+            faults.append(f"{k}: max|diff| {float(diff.max())}")
+        if k not in free:
+            off += int((diff > PARAM_ATOL).sum())
+            total += diff.numel()
+            worst = max(worst, (k, float(diff.max())), key=lambda w: w[1])
+    if off > KINK_FRACTION * total:
+        faults.append(f"{off} of {total} elements beyond {PARAM_ATOL}")
+    return faults, rel, worst
+
+
 @pytest.mark.parametrize("schedule", sorted(SCHEDULES))
 def test_batch_with_both_options_matches_jax(schedule, monkeypatch):
     """One batch of the schedule with the stem and the head, from the JAX
@@ -203,8 +290,9 @@ def test_batch_with_both_options_matches_jax(schedule, monkeypatch):
     every element by +-lr whatever its gradient's size, and rounding-level
     gradients take either sign), with the draws given: the metrics within
     LOSS_RTOL, every parameter and running statistic as the module
-    docstring says, each group's update count equal to JAX's, and every
-    group that the schedule updates moved."""
+    docstring says (with the kink nearest zero on either side), each
+    group's update count equal to JAX's, and every group that the schedule
+    updates moved."""
     name, warmup, static, epoch = SCHEDULES[schedule]
     for cls in (gan.AAE, gan.FAnoGAN, gan.AnoVAEGAN):
         monkeypatch.setattr(cls, "d_iters", D_ITERS)
@@ -220,44 +308,51 @@ def test_batch_with_both_options_matches_jax(schedule, monkeypatch):
             steps[key] = jax.jit(jt._build_train_step(**kw))
         return steps[key]
 
+    x = _x(13)
+
+    def port(**kinks):
+        _load(tt, js0)
+        tt.epoch = epoch
+        with _kinks(**kinks):
+            metrics = tt.train_step({"x": torch.from_numpy(x)})
+        return metrics, {k: v.clone() for k, v in tt.model.state_dict().items()}
+
     with one_start.given_draws():
         for b, kw in enumerate(warmup):
             js, _ = jstep(kw)(js, {"x": jnp.asarray(_x(100 + b))})
-        _load(tt, js)
-        tt.epoch = epoch
+        js0 = js
+        _load(tt, js0)
         before = one_start._port_counts(tt.optimizer)
         assert before == one_start._jax_counts(jax.device_get(js.opt_states))
         start = {k: v.clone() for k, v in tt.model.state_dict().items()}
-        x = _x(13)
         js, jm = jstep(static)(js, {"x": jnp.asarray(x)})
-        tm = tt.train_step({"x": torch.from_numpy(x)})
-    assert set(tm) == set(jm)
-    for k in jm:
-        np.testing.assert_allclose(float(tm[k]), float(jm[k]),
-                                   rtol=LOSS_RTOL, atol=1e-6,
-                                   err_msg=f"{schedule} {k}")
-    after = one_start._port_counts(tt.optimizer)
-    assert after == one_start._jax_counts(jax.device_get(js.opt_states))
-    want = params_from_flax(jax.device_get(js.params),
-                            jax.device_get(js.batch_stats), tt.model)
-    got = tt.model.state_dict()
-    bound, stat_bound = _bounds(tt, cfg, before, after)
-    free = _bn_fed_biases(want) | {"disc_dense.bias"}
-    off = total = 0
-    for k, v in want.items():
-        if k.endswith("num_batches_tracked"):  # Flax keeps no count
-            continue
-        diff = (got[k] - v).abs()
-        np.testing.assert_array_less(diff.numpy(),
-                                     bound.get(k, stat_bound), err_msg=k)
-        if k not in free:
-            off += int((diff > PARAM_ATOL).sum())
-            total += diff.numel()
-    assert off <= KINK_FRACTION * total, (off, total)
+        pre = []
+        tm, got = port(record=pre)
+        after = one_start._port_counts(tt.optimizer)
+        assert after == one_start._jax_counts(jax.device_get(js.opt_states))
+        want = params_from_flax(jax.device_get(js.params),
+                                jax.device_get(js.batch_stats), tt.model)
+        bound, stat_bound = _bounds(tt, cfg, before, after)
+        faults, rel, worst = _faults(tm, jm, got, want, bound, stat_bound)
+        print(f"[{schedule}] losses relative to JAX: {rel}; largest "
+              f"parameter difference {worst}; {faults}")
+        if faults:
+            call, element, size, value = _nearest_zero(pre)
+            assert size < float(np.finfo(np.float32).eps), (faults, size)
+            tm, got = port(flip=(call, element))
+            flipped, rel, worst = _faults(tm, jm, got, want, bound,
+                                          stat_bound)
+            print(f"[{schedule}] kink {call} (of {len(pre)}, shape "
+                  f"{tuple(pre[call].shape)}) element {element}, "
+                  f"pre-activation {value:.2e} ({size:.2e} of its tensor's "
+                  f"largest), on its other side: losses relative to JAX "
+                  f"{rel}; largest parameter difference {worst}; {flipped}")
+            assert not flipped, (faults, flipped)
     moved = {g for g, names in tt.groups.items()
              if any(not torch.equal(got[n], start[n]) for n in names)}
     assert moved == {g for g in after if after[g] > before[g]}
     assert moved == {"AAE": {"ae", "disc", "gen"},
+                     "AAE_two_ae_updates": {"ae", "disc", "gen"},
                      "fAnoGAN_wgan": {"gen", "disc"},
                      "fAnoGAN_encoder": {"enc"},
                      "AnoVAEGAN": {"vae", "gen", "disc"}}[schedule]
@@ -299,7 +394,6 @@ def _fast_spread():
 
 
 def _assert_inside(row, name, what):
-    band = _load_tool("chip_smoke", ".").spread_band
     spread = _fast_spread()["presets"][name]
     with open(TABLES["expected_h100_fast"]) as f:
         tolerances = json.load(f)["tolerances"]
@@ -308,7 +402,8 @@ def _assert_inside(row, name, what):
         if spread[key] is None:
             assert key == "finalTrainLoss" and row.get(key) is None
             continue
-        lo, hi = band(spread, key, tolerances)
+        lo, hi = run_all.tolerance_band(spread[key]["min"],
+                                        spread[key]["max"], key, tolerances)
         assert lo <= row[key] <= hi, (what, name, key, row[key], (lo, hi))
         checked += 1
     assert checked >= 3

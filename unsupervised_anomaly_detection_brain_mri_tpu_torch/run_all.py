@@ -125,13 +125,23 @@ def _comparable_settings(tokens) -> dict:
     return pairs
 
 
+def tolerance_band(lo: float, hi: float, key: str, tolerances: dict
+                   ) -> tuple:
+    """[lo, hi] of ``key`` widened by a table's tolerance: absolute for
+    the curve metrics, which live in [0, 1]; relative for the loss."""
+    if key == "finalTrainLoss":
+        tol = float(tolerances.get(key, 0.5))
+        return lo - tol * abs(lo), hi + tol * abs(hi)
+    tol = float(tolerances.get(key, 0.1))
+    return lo - tol, hi + tol
+
+
 def compare_scoreboard(scoreboard: dict, expected: dict) -> list:
     """Compare a scoreboard run against a committed expected table.
 
     Returns a list of human-readable regression strings (empty == pass).
     A preset regresses when any metric leaves ``expected value ±
-    tolerance`` (absolute for the curve metrics, which live in [0, 1];
-    relative for the loss).  A table of another backend, profile or recipe
+    tolerance`` (``tolerance_band``).  A table of another backend, profile or recipe
     is refused outright.
     """
     exp_backend = expected.get("backend")
@@ -177,14 +187,11 @@ def compare_scoreboard(scoreboard: dict, expected: dict) -> list:
             if g is None or not (g == g):  # missing or NaN
                 problems.append(f"{name}: {key} missing/NaN (expected {e})")
                 continue
-            if key == "finalTrainLoss":
-                bound = abs(e) * float(tol.get(key, 0.5))
-            else:
-                bound = float(tol.get(key, 0.1))
-            if abs(g - e) > bound:
+            lo, hi = tolerance_band(e, e, key, tol)
+            if not lo <= g <= hi:
                 problems.append(
                     f"{name}: {key} = {g:.4f}, expected {e:.4f} "
-                    f"(±{bound:.4f})")
+                    f"(±{(hi - lo) / 2:.4f})")
     return problems
 
 
