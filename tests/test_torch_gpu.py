@@ -318,3 +318,123 @@ def test_step_one_differences_are_rounding_or_kinks(cuda):
          torch.backends.cuda.matmul.allow_tf32) = tf32
     assert neither == 0 and rounding + kink == n
     assert len(kinks[0]) == len(kinks[1]) > 1
+
+
+@pytest.mark.gpu
+def test_program_spans_hold_their_kernels_on_the_profilers_clock(cuda):
+    """A ``torch.cuda._sleep`` kernel launched and waited for inside a
+    program span lies within the span on the clock the benchmark aligns
+    the profiler's device events to, within 0.1 ms; a recording without
+    ``annotate`` adds no event of its spans' names to the device's."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from benchmark.common.trace import DeviceTrace
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
+        trace,
+    )
+
+    t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
+                                 outputWidth=32, outputHeight=32, zDim=16,
+                                 batchsize=8), device="cuda")
+    t.init_state()
+    pool = {"x": torch.rand(16, 32, 32, 1, device=cuda)}
+    torch.cuda._sleep(1000)
+    t._run_epoch("TRAIN", pool, np.arange(16).reshape(2, 8))
+    torch.cuda.synchronize()
+    with DeviceTrace(cuda) as tr, trace.recording() as rec:
+        for _ in range(3):
+            with trace.span("test.sleep"):
+                torch.cuda._sleep(2_000_000)
+                torch.cuda.synchronize()
+        t._run_epoch("TRAIN", pool, np.arange(16).reshape(2, 8))
+    sleeps = [(s, e) for n, s, e in tr.events if "spin" in n]
+    spans = [(s["start_ns"], s["end_ns"]) for s in rec.spans()
+             if s["name"] == "test.sleep"]
+    assert len(sleeps) == len(spans) == 3, sorted({n for n, _, _ in
+                                                   tr.events})
+    marker = tr.events[0][1] - tr._mark_ns  # the marker's launch to start
+    for (k0, k1), (s0, s1) in zip(sleeps, spans):
+        assert s0 - 100_000 <= k0 < k1 <= s1 + 100_000, (
+            f"kernel {k0 - s0} ns after the span's start, "
+            f"{s1 - k1} ns before its end; marker {marker} ns")
+    names = {s["name"] for s in rec.spans()}
+    assert "train.forward" in names
+    assert not names & {n for n, _, _ in tr.events}
+
+
+def _synchronising_calls(fn):
+    """(``host_syncs`` counted over ``fn()``, the Python stack of each
+    synchronising call that ``torch.cuda.set_sync_debug_mode("warn")``
+    reports while ``fn`` runs, innermost frame first).  After a training
+    epoch the mode's switch itself reports one, outside ``fn``."""
+    import traceback
+    import warnings
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
+        trace,
+    )
+
+    reported, running = [], []
+
+    def keep(message, category, filename, lineno, file=None, line=None):
+        if running and "synchroniz" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            reported.append(" <- ".join(
+                f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno} {f.name}"
+                for f in reversed(stack[-6:])))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = keep
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with trace.recording() as rec:
+                running.append(True)
+                fn()
+                running.clear()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return rec.counters().get("host_syncs", 0), reported
+
+
+@pytest.mark.gpu
+def test_host_syncs_count_every_synchronising_call_of_an_epoch(cuda):
+    """One ``AE`` epoch (warm): the index upload is its one sync."""
+    t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
+                                 outputWidth=32, outputHeight=32, zDim=16,
+                                 batchsize=8, dropout_rate=0.2),
+                          device="cuda")
+    t.init_state()
+    pool = {"x": torch.rand(32, 32, 32, 1, device=cuda)}
+    idxs = np.arange(32).reshape(4, 8)
+    t._run_epoch("TRAIN", pool, idxs)
+    counted, reported = _synchronising_calls(
+        lambda: t._run_epoch("TRAIN", pool, idxs))
+    assert counted == len(reported) == 1, reported
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trainer,model", [
+    ("AE", "autoencoder"), ("VAE_You", "variational_autoencoder")])
+def test_host_syncs_count_every_synchronising_call_of_detect(cuda, trainer,
+                                                             model):
+    """One warm ``detect`` with a threshold that leaves lesions: every
+    synchronising call the debug mode reports is counted, and no more."""
+    t = _vae_trainer(trainer, model, "cuda") if trainer == "VAE_You" else \
+        get_trainer("AE")(Config(trainer="AE", model="autoencoder",
+                                 outputWidth=32, outputHeight=32, zDim=16),
+                          device="cuda")
+    if trainer == "AE":
+        t.init_state()
+    det = AnomalyDetector(t, t.config, Options(erosionIterations=1,
+                                               minLesionSize=2))
+    vol = make_phantom(np.random.default_rng(0), 48, 12, True)["volume"]
+    det.threshold = float(np.quantile(det.detect(vol)["anomaly_map"], 0.99))
+    counted, reported = _synchronising_calls(lambda: det.detect(vol))
+    assert counted == len(reported), reported

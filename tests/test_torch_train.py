@@ -523,3 +523,7 @@ def test_profile_dir_traces_the_first_epoch(tmp_path):
                           device="cpu")
     t.fit(_dataset())
     assert sorted(os.listdir(tmp_path / "prof")) == ["epoch_0.trace.json"]
+    with open(tmp_path / "prof" / "epoch_0.trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"train.epoch", "train.step", "train.forward", "train.backward",
+            "train.optimizer"} <= names

@@ -67,6 +67,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops.median import (
     median_filter_3d_auto,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 def _artifacts() -> Tuple[Any, Optional[str]]:
     """(module, None), or (None, name of the missing package): the plots
@@ -106,17 +107,18 @@ def _zoom_volume(vol: np.ndarray, target: Tuple[int, int],
     """Per-slice scipy zoom.  vol: (H, W, S) -> (S, target_h, target_w);
     images use the default spline order, segmentations boundary 'nearest'
     (binarised downstream)."""
-    H, W, S = vol.shape
-    if (H, W) == tuple(target):
-        return np.transpose(vol, (2, 0, 1)).astype(np.float32)
-    zoom = (target[0] / H, target[1] / W)
-    out = np.zeros((S, target[0], target[1]), np.float32)
-    for s in range(S):
-        if seg:
-            out[s] = ndi.zoom(vol[:, :, s], zoom, mode="nearest")
-        else:
-            out[s] = ndi.zoom(vol[:, :, s], zoom)
-    return out
+    with trace.span("serve.zoom"):
+        H, W, S = vol.shape
+        if (H, W) == tuple(target):
+            return np.transpose(vol, (2, 0, 1)).astype(np.float32)
+        zoom = (target[0] / H, target[1] / W)
+        out = np.zeros((S, target[0], target[1]), np.float32)
+        for s in range(S):
+            if seg:
+                out[s] = ndi.zoom(vol[:, :, s], zoom, mode="nearest")
+            else:
+                out[s] = ndi.zoom(vol[:, :, s], zoom)
+        return out
 
 
 def volume_generator(device: torch.device, *key: int) -> torch.Generator:
@@ -196,8 +198,9 @@ def _reconstruct_volume(trainer, x: torch.Tensor, options: Options,
             vols[0], dropout=dropout,
             generator=generators[0])["reconstruction"][None]
 
-    return _reconstruct_stack(x[None], [int(x.shape[0])], options, [key],
-                              [eroded], reconstruct)[0]
+    with trace.span("serve.reconstruct"):
+        return _reconstruct_stack(x[None], [int(x.shape[0])], options,
+                                  [key], [eroded], reconstruct)[0]
 
 
 def _reconstruct_volume_group(trainer, xs: List[torch.Tensor],
@@ -239,14 +242,16 @@ def _postprocess(x: torch.Tensor, rec: torch.Tensor, eroded: torch.Tensor,
     tensors' device.  x, rec, eroded: (S, H, W).  With ``want_raw`` also
     returns the residual before the median (for the ``_diff.png``
     pictures)."""
-    diff = P.positive_residual(x, rec, bool(options.keepOnlyPositiveResiduals))
-    diff = diff * eroded.to(diff.dtype)
-    if options.applyHyperIntensityPrior:
-        diff = P.hyperintensity_prior_mask(diff, x, prior_q)
-    raw = diff
-    if options.medianFiltering:
-        diff = median_filter_3d_auto(diff.contiguous(), 5)
-    return (diff, raw) if want_raw else diff
+    with trace.span("serve.postprocess"):
+        diff = P.positive_residual(x, rec,
+                                   bool(options.keepOnlyPositiveResiduals))
+        diff = diff * eroded.to(diff.dtype)
+        if options.applyHyperIntensityPrior:
+            diff = P.hyperintensity_prior_mask(diff, x, prior_q)
+        raw = diff
+        if options.medianFiltering:
+            diff = median_filter_3d_auto(diff.contiguous(), 5)
+        return (diff, raw) if want_raw else diff
 
 
 def export_residual_volume(path: str, diff_sub: np.ndarray,

@@ -12,6 +12,12 @@ Usage:
 When the calibration (or ``options``) has ``numMonteCarloSamples > 1``,
 ``detect`` runs the MC-dropout reconstruction the threshold was fitted
 under and also returns ``epistemic_variance`` and ``combined_variance``.
+
+Under ``utils.trace.recording()`` a request records a ``serve.request``
+span around its stages (``serve.zoom``, ``serve.mask``, ``serve.upload``,
+``serve.erode``, ``serve.reconstruct``, ``serve.postprocess``,
+``serve.download``, ``serve.components``, and ``serve.download`` again for
+the mask) and counts its host syncs and labelling rounds.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 CALIBRATION_FILE = "calibration.json"
 
@@ -129,42 +136,57 @@ class AnomalyDetector:
         on the host; reconstruction and post-processing on the device, with
         the random source ``volume_generator(device, 0)`` (``(0, i)`` for
         MC sample i)."""
-        c = self.config
-        o = self.options
-        vol = normalize_volume(volume, method=o.normalizationMethod,
-                               upper_percentile=o.upperpercentile)
-        x = _zoom_volume(vol, (c.outputHeight, c.outputWidth))  # (S, H, W)
-        if brainmask is not None:
-            skm = (_zoom_volume(brainmask.astype(np.float32),
-                                (c.outputHeight, c.outputWidth),
-                                seg=True) > 0.5).astype(np.float32)
-        else:
-            skm = (x > 0.05).astype(np.float32)
-        prior_q = float(np.quantile(vol, 0.9))
+        with trace.span("serve.request",
+                        request=trace.count("serve.requests")):
+            c = self.config
+            o = self.options
+            vol = normalize_volume(volume, method=o.normalizationMethod,
+                                   upper_percentile=o.upperpercentile)
+            # (S, H, W)
+            x = _zoom_volume(vol, (c.outputHeight, c.outputWidth))
+            with trace.span("serve.mask"):
+                if brainmask is not None:
+                    skm = (_zoom_volume(brainmask.astype(np.float32),
+                                        (c.outputHeight, c.outputWidth),
+                                        seg=True) > 0.5).astype(np.float32)
+                else:
+                    skm = (x > 0.05).astype(np.float32)
+                prior_q = float(np.quantile(vol, 0.9))
 
-        xd = torch.from_numpy(x).to(self.device)
-        eroded = _eroded_mask(torch.from_numpy(skm).to(self.device), o)
-        res = _reconstruct_volume(self.trainer, xd[..., None], o, (0,),
-                                  eroded)
-        rec = res["reconstruction"][..., 0]
-        diff = _postprocess(xd, rec, eroded, prior_q, o)
+            with trace.span("serve.upload"):
+                xd = torch.from_numpy(x).to(self.device)
+                skmd = torch.from_numpy(skm).to(self.device)
+                trace.count("host_syncs", 2)
+            with trace.span("serve.erode"):
+                eroded = _eroded_mask(skmd, o)
+                del skmd  # freed before the reconstruction
+            res = _reconstruct_volume(self.trainer, xd[..., None], o, (0,),
+                                      eroded)
+            rec = res["reconstruction"][..., 0]
+            diff = _postprocess(xd, rec, eroded, prior_q, o)
 
-        diff_np = diff.cpu().numpy()
-        result: Dict[str, Any] = {
-            "anomaly_map": diff_np,
-            "reconstruction": rec.cpu().numpy(),
-            "scores": diff_np.reshape(diff_np.shape[0], -1).max(axis=1),
-        }
-        if res["epistemic"] is not None:
-            result["epistemic_variance"] = res["epistemic"][..., 0].cpu(
-            ).numpy()
-            result["combined_variance"] = res["combined"][..., 0].cpu(
-            ).numpy()
-        t = threshold if threshold is not None else self.threshold
-        if t is not None:
-            mask, cc_conv = P.filter_small_components(
-                diff > float(t), o.minLesionSize, return_converged=True)
-            result["mask"] = mask.cpu().numpy()
-            result["anomalous_voxels"] = int(result["mask"].sum())
-            result["cc_converged"] = bool(cc_conv)
-        return result
+            with trace.span("serve.download"):
+                diff_np = diff.cpu().numpy()
+                result: Dict[str, Any] = {
+                    "anomaly_map": diff_np,
+                    "reconstruction": rec.cpu().numpy(),
+                    "scores": diff_np.reshape(diff_np.shape[0],
+                                              -1).max(axis=1),
+                }
+                trace.count("host_syncs", 2)
+                if res["epistemic"] is not None:
+                    result["epistemic_variance"] = res["epistemic"][
+                        ..., 0].cpu().numpy()
+                    result["combined_variance"] = res["combined"][
+                        ..., 0].cpu().numpy()
+                    trace.count("host_syncs", 2)
+            t = threshold if threshold is not None else self.threshold
+            if t is not None:
+                mask, cc_conv = P.filter_small_components(
+                    diff > float(t), o.minLesionSize, return_converged=True)
+                with trace.span("serve.download"):
+                    result["mask"] = mask.cpu().numpy()
+                    trace.count("host_syncs")
+                result["anomalous_voxels"] = int(result["mask"].sum())
+                result["cc_converged"] = bool(cc_conv)
+            return result

@@ -24,6 +24,8 @@ from typing import Tuple, Union
 
 import torch
 
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
+
 _INF = 2 ** 30
 
 
@@ -62,6 +64,7 @@ def hyperintensity_prior_mask(diff: torch.Tensor, x: torch.Tensor,
     """Zero residuals where the input is below the hyperintensity prior
     quantile (compared in float32, like the JAX package)."""
     q = torch.tensor(quantile_value, dtype=torch.float32, device=x.device)
+    trace.count("host_syncs")  # a pageable host-to-device copy
     return torch.where(x < q, torch.zeros_like(diff), diff)
 
 
@@ -117,12 +120,17 @@ def connected_components_3d(mask: torch.Tensor, max_iters: int = 1024,
         changed = (new != labels).flatten(-3).any(-1)
         labels = new
         it += 1
+        trace.count("cc_rounds")
+        trace.count("host_syncs")
         if not bool(changed.any()):
             break
     out = torch.where(mask, labels, torch.zeros_like(labels))
     if return_converged:
         converged = ~changed
-        return out, (bool(converged) if converged.ndim == 0 else converged)
+        if converged.ndim == 0:
+            trace.count("host_syncs")
+            return out, bool(converged)
+        return out, converged
     return out
 
 
@@ -150,6 +158,8 @@ def per_voxel_component_size(labels: torch.Tensor) -> torch.Tensor:
     per volume for a stack."""
     flat, _, _ = _flat_with_offsets(labels)
     counts = torch.bincount(flat)
+    # a CUDA bincount reads its input's min and max back
+    trace.count("host_syncs", 2)
     sizes = counts[flat].reshape(labels.shape)
     return torch.where(labels > 0, sizes, 0).to(torch.int32)
 
@@ -180,14 +190,15 @@ def filter_small_components(mask: torch.Tensor, min_size: int = 7,
     """Remove 26-connected components with <= ``min_size`` voxels.
     mask: (S, H, W) -> float32 0/1 (plus the convergence bool of
     ``connected_components_3d`` with ``return_converged``)."""
-    m = mask.to(torch.bool)
-    labels, converged = connected_components_3d(
-        m, max_iters, return_converged=True)
-    keep = per_voxel_component_size(labels) > min_size
-    out = (m & keep).to(torch.float32)
-    if return_converged:
-        return out, converged
-    return out
+    with trace.span("serve.components"):
+        m = mask.to(torch.bool)
+        labels, converged = connected_components_3d(
+            m, max_iters, return_converged=True)
+        keep = per_voxel_component_size(labels) > min_size
+        out = (m & keep).to(torch.float32)
+        if return_converged:
+            return out, converged
+        return out
 
 
 def detection_counts_chunk(pred: torch.Tensor, gt: torch.Tensor,

@@ -75,6 +75,13 @@ logs each epoch's metrics per phase and an image grid of the pool's first
 eval-mode forward runs on every rank (a tensor-parallel forward is
 collective).
 
+Tracing (``utils/trace.py``): under ``trace.recording()`` an epoch is a
+``train.epoch`` span and ``train_step`` splits into ``train.forward``
+(model and losses), ``train.backward`` (zero_grad, backward, the mesh's
+gradient mean) and ``train.optimizer``.  ``Options.profileDir`` writes a
+chrome trace of the first epoch that names these spans beside the kernels
+they launch.
+
 Random streams: weights are drawn from a CPU generator seeded with
 ``config.seed`` (Glorot uniform).  Training draws dropout, instance noise
 and context masks from ``generator`` on the trainer's device, seeded with
@@ -91,6 +98,7 @@ have no torch counterpart, so the draws differ between the packages
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -151,6 +159,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.restoration import
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.state import (
     make_optimizer,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils.logger import (
     Logger,
 )
@@ -380,13 +389,16 @@ class BaseTrainer:
         mesh ``batch`` is this rank's rows, the gradients are averaged over
         the group before the step, and the returned metrics are the
         rank's own."""
-        outputs, inputs = self.apply_model(batch, train=True)
-        losses = self.compute_losses_with_inputs(outputs, batch, inputs)
-        self.optimizer.zero_grad(set_to_none=True)
-        losses["loss"].backward()
-        if self.data_parallel:
-            psum_mean_grads(self.mesh, self.model.parameters())
-        self.optimizer.step()
+        with trace.span("train.forward"):
+            outputs, inputs = self.apply_model(batch, train=True)
+            losses = self.compute_losses_with_inputs(outputs, batch, inputs)
+        with trace.span("train.backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            losses["loss"].backward()
+            if self.data_parallel:
+                psum_mean_grads(self.mesh, self.model.parameters())
+        with trace.span("train.optimizer"):
+            self.optimizer.step()
         self.step += 1
         return self._scalar_metrics(losses)
 
@@ -445,31 +457,33 @@ class BaseTrainer:
         tb = dict(tb_every=int(self.options.tbEveryNBatches),
                   tb_hook=self._tb_batch_log) \
             if phase == "TRAIN" and self.tensorboard else {}
-        if self.data_parallel:
-            idxs = idxs[:, self.mesh.rows(idxs.shape[1])]
-        if not isinstance(pool["x"], np.ndarray):
-            self.streamed_last_epoch = False
-            sums = run_epoch(step, pool, idxs, log_every_n=log_n,
-                             first_step=self.step, **tb)
-        else:
-            self.streamed_last_epoch = True
-            chunk = max(1, int(self.options.streamPoolChunkBatches))
-            sums = None
-            for i in range(0, len(idxs), chunk):
-                rows = idxs[i:i + chunk]
-                flat = rows.reshape(-1)
-                cpool = {k: torch.from_numpy(v[flat]).to(self.device)
-                         for k, v in pool.items()}
-                local = np.arange(flat.size).reshape(rows.shape)
-                sums = run_epoch(step, cpool, local, sums,
-                                 log_every_n=log_n, first_step=self.step,
-                                 **tb)
-        means = {k: v / len(idxs) for k, v in sums.items()}
-        if self.data_parallel:
-            keys = sorted(means)
-            means = dict(zip(keys, psum_mean(
-                self.mesh, torch.stack([means[k] for k in keys]))))
-        return means
+        with trace.span("train.epoch", phase=phase):
+            if self.data_parallel:
+                idxs = idxs[:, self.mesh.rows(idxs.shape[1])]
+            if not isinstance(pool["x"], np.ndarray):
+                self.streamed_last_epoch = False
+                sums = run_epoch(step, pool, idxs, log_every_n=log_n,
+                                 first_step=self.step, **tb)
+            else:
+                self.streamed_last_epoch = True
+                chunk = max(1, int(self.options.streamPoolChunkBatches))
+                sums = None
+                for i in range(0, len(idxs), chunk):
+                    rows = idxs[i:i + chunk]
+                    flat = rows.reshape(-1)
+                    cpool = {k: torch.from_numpy(v[flat]).to(self.device)
+                             for k, v in pool.items()}
+                    trace.count("host_syncs", len(cpool))
+                    local = np.arange(flat.size).reshape(rows.shape)
+                    sums = run_epoch(step, cpool, local, sums,
+                                     log_every_n=log_n, first_step=self.step,
+                                     **tb)
+            means = {k: v / len(idxs) for k, v in sums.items()}
+            if self.data_parallel:
+                keys = sorted(means)
+                means = dict(zip(keys, psum_mean(
+                    self.mesh, torch.stack([means[k] for k in keys]))))
+            return means
 
     def _profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -538,13 +552,16 @@ class BaseTrainer:
                     f"{n_train} slices — no full batch can be formed")
             self.epoch = epoch
             prof = None
-            if self.options.profileDir and epoch == start_epoch:
-                prof = self._profiler()
-                prof.__enter__()
-            metrics = self._run_epoch("TRAIN", train_pool, idxs)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            with contextlib.ExitStack() as profiled:
+                if self.options.profileDir and epoch == start_epoch:
+                    prof = profiled.enter_context(self._profiler())
+                    # the chrome trace names the port's spans beside the
+                    # kernels they launch
+                    profiled.enter_context(trace.recording(annotate=True))
+                metrics = self._run_epoch("TRAIN", train_pool, idxs)
+                trace.count("host_syncs", len(metrics))
+                metrics = {k: float(v) for k, v in metrics.items()}
             if prof is not None:
-                prof.__exit__(None, None, None)
                 os.makedirs(self.options.profileDir, exist_ok=True)
                 prof.export_chrome_trace(os.path.join(
                     self.options.profileDir, f"epoch_{epoch}.trace.json"))
@@ -565,8 +582,9 @@ class BaseTrainer:
                 vidx = epoch_indices(host_rng, int(val_pool["x"].shape[0]),
                                      c.batchsize, shuffle=False)
                 if vidx.size:
-                    vmetrics = {k: float(v) for k, v in self._run_epoch(
-                        "VAL", val_pool, vidx).items()}
+                    vmeans = self._run_epoch("VAL", val_pool, vidx)
+                    trace.count("host_syncs", len(vmeans))
+                    vmetrics = {k: float(v) for k, v in vmeans.items()}
                     if self.is_writer:
                         print(f"Epoch (val):   [{epoch:3d}] "
                               + " ".join(f"{k}: {v:.6f}" for k, v in

@@ -8,7 +8,8 @@ jitted ``lax.scan`` of ``EpochCompiler``: the slice pool is a device
 tensor, the epoch's (num_batches, batchsize) index matrix is uploaded once,
 each step gathers its batch with ``index_select``, and the per-batch scalar
 metrics are summed on the device, so an epoch syncs with the host once
-(plus once per logged batch).  ``tb_every``/``tb_hook`` take the place of
+(plus once per logged batch; ``utils/trace.py`` counts them and spans the
+upload and each step).  ``tb_every``/``tb_hook`` take the place of
 ``EpochCompiler``'s mid-epoch TensorBoard callback: the hook gets every
 ``tb_every``-th global step's number, metrics and batch.
 """
@@ -19,6 +20,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 Batch = Dict[str, torch.Tensor]
 StepFn = Callable[[Batch], Dict[str, torch.Tensor]]
@@ -60,14 +63,18 @@ def run_epoch(step: StepFn, pool: Batch, idxs: np.ndarray,
     ``tb_every`` > 0 those that are multiples of it call
     ``tb_hook(step, metrics, batch)``."""
     device = next(iter(pool.values())).device
-    rows = torch.as_tensor(np.asarray(idxs), dtype=torch.int64).to(device)
+    with trace.span("train.indices"):
+        rows = torch.as_tensor(np.asarray(idxs), dtype=torch.int64).to(device)
+        trace.count("host_syncs")
     for b in range(rows.shape[0]):
-        batch = {k: v.index_select(0, rows[b]) for k, v in pool.items()}
-        metrics = step(batch)
-        sums = (dict(metrics) if sums is None
-                else {k: sums[k] + v for k, v in metrics.items()})
         step_no = first_step + b + 1
+        with trace.span("train.step", step=step_no):
+            batch = {k: v.index_select(0, rows[b]) for k, v in pool.items()}
+            metrics = step(batch)
+            sums = (dict(metrics) if sums is None
+                    else {k: sums[k] + v for k, v in metrics.items()})
         if log_every_n > 0 and step_no % log_every_n == 0:
+            trace.count("host_syncs", len(metrics))
             msg = " ".join(f"{k}: {float(v):.6f}"
                            for k, v in sorted(metrics.items()))
             print(f"  batch [{step_no:6d}] {msg}", flush=True)
