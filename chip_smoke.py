@@ -471,14 +471,13 @@ def phase_serve(wd, scans):
 
     from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
-        normalize_volume,
         open_volume,
     )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import prep
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
         _eroded_mask,
         _postprocess,
         _reconstruct_volume,
-        _zoom_volume,
     )
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.inference import (
         AnomalyDetector,
@@ -532,13 +531,12 @@ def phase_serve(wd, scans):
     o, c = det.options, det.config
     state = {}
 
-    def prep():
-        v = normalize_volume(vol, method=o.normalizationMethod,
-                             upper_percentile=o.upperpercentile)
-        x = _zoom_volume(v, (c.outputHeight, c.outputWidth))
-        state["q"] = float(np.quantile(v, 0.9))
-        state["x"] = torch.from_numpy(x).cuda()
-        state["skm"] = (state["x"] > 0.05).float()
+    def prepare():
+        # the prep detect runs on the card: upload, normalisation, zoom,
+        # mask and the prior's quantile
+        state["x"], state["skm"], state["q"] = prep.prepare_device(
+            vol, (c.outputHeight, c.outputWidth), o.upperpercentile,
+            det.device)
         torch.cuda.synchronize()
 
     def recon():
@@ -556,7 +554,7 @@ def phase_serve(wd, scans):
         P.filter_small_components(state["diff"] > THRESHOLD, o.minLesionSize)
         torch.cuda.synchronize()
 
-    parts = {"host prep": host_ms(prep), "reconstruct": host_ms(recon),
+    parts = {"prep": host_ms(prepare), "reconstruct": host_ms(recon),
              "postprocess": host_ms(post), "components": host_ms(cc)}
     print("[serve] breakdown (host clock, median of 5): " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in parts.items()))
@@ -566,6 +564,7 @@ def phase_serve(wd, scans):
 def phase_card_vs_cpu(wd, scans):
     import numpy as np
     import torch
+    from scipy import ndimage as ndi
 
     from unsupervised_anomaly_detection_brain_mri_tpu_torch import Config
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
@@ -583,24 +582,34 @@ def phase_card_vs_cpu(wd, scans):
     with open(cfg_path, "w") as f:
         f.write(config.replace(compute_dtype="float32").to_json())
     vol = np.asarray(open_volume(scans[0]).data, np.float32)
-    res = {dev: AnomalyDetector.from_workdir(wd, device=dev).detect(vol)
-           for dev in ("cuda", "cpu")}
-    gpu, cpu = res["cuda"], res["cpu"]
-    map_err = float(np.abs(gpu["anomaly_map"] - cpu["anomaly_map"]).max())
-    rec_err = float(np.abs(gpu["reconstruction"]
-                           - cpu["reconstruction"]).max())
-    score_err = float(np.abs(gpu["scores"] - cpu["scores"]).max())
-    differ = gpu["mask"] != cpu["mask"]
-    near = np.abs(cpu["anomaly_map"] - THRESHOLD) <= TOL
-    print(f"[card-vs-cpu] float32, TF32 off: max|d reconstruction| "
-          f"{rec_err:.3e}, max|d anomaly map| {map_err:.3e}, max|d scores| "
-          f"{score_err:.3e}, mask voxels differing {int(differ.sum())} "
-          f"(of which within {TOL} of the threshold "
-          f"{int((differ & near).sum())}), anomalous voxels card "
-          f"{gpu['anomalous_voxels']} cpu {cpu['anomalous_voxels']}")
-    check(map_err <= TOL, f"anomaly map differs by {map_err}")
-    check(score_err <= TOL, f"scores differ by {score_err}")
-    check(not (differ & ~near).any(), "masks differ away from the threshold")
+    H, W, _ = vol.shape
+    # the model's geometry (the zoom only transposes) and the serving
+    # geometry, 181x217 in plane, where detect zooms every slice
+    volumes = {"model": vol,
+               "serving": ndi.zoom(vol, (181 / H, 217 / W, 1), order=1)}
+    dets = {dev: AnomalyDetector.from_workdir(wd, device=dev)
+            for dev in ("cuda", "cpu")}
+    map_err = 0.0
+    for name, v in volumes.items():
+        gpu, cpu = (dets[dev].detect(v) for dev in ("cuda", "cpu"))
+        err = float(np.abs(gpu["anomaly_map"] - cpu["anomaly_map"]).max())
+        rec_err = float(np.abs(gpu["reconstruction"]
+                               - cpu["reconstruction"]).max())
+        score_err = float(np.abs(gpu["scores"] - cpu["scores"]).max())
+        differ = gpu["mask"] != cpu["mask"]
+        near = np.abs(cpu["anomaly_map"] - THRESHOLD) <= TOL
+        print(f"[card-vs-cpu] {name} geometry {v.shape}, float32, TF32 off: "
+              f"max|d reconstruction| {rec_err:.3e}, max|d anomaly map| "
+              f"{err:.3e}, max|d scores| {score_err:.3e}, mask voxels "
+              f"differing {int(differ.sum())} (of which within {TOL} of "
+              f"the threshold {int((differ & near).sum())}), anomalous "
+              f"voxels card {gpu['anomalous_voxels']} cpu "
+              f"{cpu['anomalous_voxels']}")
+        check(err <= TOL, f"{name}: anomaly map differs by {err}")
+        check(score_err <= TOL, f"{name}: scores differ by {score_err}")
+        check(not (differ & ~near).any(),
+              f"{name}: masks differ away from the threshold")
+        map_err = max(map_err, err)
     return map_err
 
 

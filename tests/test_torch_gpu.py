@@ -438,3 +438,96 @@ def test_host_syncs_count_every_synchronising_call_of_detect(cuda, trainer,
     det.threshold = float(np.quantile(det.detect(vol)["anomaly_map"], 0.99))
     counted, reported = _synchronising_calls(lambda: det.detect(vol))
     assert counted == len(reported), reported
+
+
+def _serve_phantom():
+    """A lesioned phantom at the serving geometry, (181, 217, 181)."""
+    import _torch_realdata as R
+
+    lab = R.head_labels(R.BRAINWEB_SHAPE, 2)
+    return R.intensity(lab, R._FLAIR, np.random.default_rng(7),
+                       noise_pct=3.0, inu_pct=20.0)
+
+
+@pytest.mark.gpu
+def test_detect_prepares_on_card_as_on_cpu_at_the_serving_geometry(
+        cuda, tmp_path, monkeypatch):
+    """The card's prep (``eval/prep.py``) against the CPU's host prep for
+    the same weights and scan: x within 1e-6, the prior's quantile
+    bit-equal, the map and mask as in ``test_detect_on_card_matches_cpu``."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
+        inference,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = Config(trainer="AE", model="autoencoder", outputWidth=128,
+                 outputHeight=128, zDim=128, compute_dtype="float32")
+    trainer = get_trainer("AE")(cfg, workdir=str(tmp_path), device="cuda")
+    trainer.init_state()
+    trainer.save_checkpoint()
+    save_calibration(str(tmp_path), 0.1, 0.0, Options(), "phantom")
+    vol = _serve_phantom()
+    seen = {}
+    post = inference._postprocess
+
+    def keep(x, rec, eroded, prior_q, *a, **k):
+        seen[x.device.type] = (x.cpu().numpy(), prior_q)
+        return post(x, rec, eroded, prior_q, *a, **k)
+
+    monkeypatch.setattr(inference, "_postprocess", keep)
+    dets = {dev: AnomalyDetector.from_workdir(str(tmp_path), device=dev)
+            for dev in ("cuda", "cpu")}
+    res = {"cpu": dets["cpu"].detect(vol)}
+    t = float(np.quantile(res["cpu"]["anomaly_map"], 0.999))
+    res = {dev: det.detect(vol, threshold=t) for dev, det in dets.items()}
+    np.testing.assert_allclose(seen["cuda"][0], seen["cpu"][0], atol=1e-6,
+                               rtol=0)
+    assert seen["cuda"][1] == seen["cpu"][1]
+    np.testing.assert_allclose(res["cuda"]["anomaly_map"],
+                               res["cpu"]["anomaly_map"], atol=1e-5, rtol=0)
+    near = np.abs(res["cpu"]["anomaly_map"] - t) <= 1e-5
+    assert not ((res["cuda"]["mask"] != res["cpu"]["mask"]) & ~near).any()
+    assert res["cpu"]["anomalous_voxels"] > 0
+
+
+@pytest.mark.gpu
+def test_every_request_on_the_card_is_prepared_there(cuda):
+    """``serve.prep_device`` counts each ``detect`` on the card."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
+        trace,
+    )
+
+    t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
+                                 outputWidth=32, outputHeight=32, zDim=16),
+                          device="cuda")
+    t.init_state()
+    det = AnomalyDetector(t, t.config, Options(erosionIterations=1,
+                                               minLesionSize=2), 0.1)
+    vol = make_phantom(np.random.default_rng(0), 48, 12, True)["volume"]
+    with trace.recording() as rec:
+        for _ in range(3):
+            det.detect(vol)
+    counts = rec.counters()
+    assert counts["serve.prep_device"] == counts["serve.requests"] == 3
+    names = [s["name"] for s in rec.spans()]
+    assert names.count("serve.normalize") == 3
+
+
+@pytest.mark.gpu
+def test_host_syncs_count_every_synchronising_call_of_detect_with_a_brainmask(
+        cuda):
+    """A warm ``detect`` given a brain mask (uploaded and zoomed on the
+    card): every synchronising call the debug mode reports is counted."""
+    t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
+                                 outputWidth=32, outputHeight=32, zDim=16),
+                          device="cuda")
+    t.init_state()
+    det = AnomalyDetector(t, t.config, Options(erosionIterations=1,
+                                               minLesionSize=2))
+    ph = make_phantom(np.random.default_rng(0), 48, 12, True)
+    vol, mask = ph["volume"], ph["brainmask"]
+    det.threshold = float(np.quantile(
+        det.detect(vol, mask)["anomaly_map"], 0.99))
+    counted, reported = _synchronising_calls(lambda: det.detect(vol, mask))
+    assert counted == len(reported), reported

@@ -42,6 +42,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import (
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import (
     inference,
+    prep,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.convert import (
     params_from_flax,
@@ -55,6 +56,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
@@ -141,6 +143,26 @@ def test_detect_matches_jax(converted, size, with_brainmask):
     _assert_masks_agree(got["mask"], ref["mask"], ref["anomaly_map"], t)
     near = int((np.abs(ref["anomaly_map"] - t) <= ATOL).sum())
     assert abs(got["anomalous_voxels"] - ref["anomalous_voxels"]) <= near
+
+
+@pytest.mark.parametrize("size,with_brainmask", [(32, True), (32, False),
+                                                 (40, True), (40, False)])
+def test_detect_with_device_prep_matches_jax(converted, monkeypatch, size,
+                                             with_brainmask):
+    """``test_detect_matches_jax`` with the port's prep forced through
+    ``prep.prepare_device`` on the CPU, the prep ``detect`` runs on a CUDA
+    device: at size 40 every slice and the brain mask are zoomed to 32x32
+    by the operators, at 32 only transposed."""
+    def on_device(self, volume, target, brainmask):
+        return prep.prepare_device(volume, target,
+                                   self.options.upperpercentile, self.device,
+                                   brainmask)
+
+    monkeypatch.setattr(inference.AnomalyDetector, "_prepare_host",
+                        on_device)
+    with trace.recording() as rec:
+        test_detect_matches_jax(converted, size, with_brainmask)
+    assert rec.counters()["serve.prep_device"] == 1
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])

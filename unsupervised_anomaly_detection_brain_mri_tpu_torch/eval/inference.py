@@ -13,18 +13,26 @@ When the calibration (or ``options``) has ``numMonteCarloSamples > 1``,
 ``detect`` runs the MC-dropout reconstruction the threshold was fitted
 under and also returns ``epistemic_variance`` and ``combined_variance``.
 
+On a CUDA device with the ``scaling`` normalisation, ``detect`` uploads the
+raw scan once and prepares it there (``eval/prep.py``: normalisation, zoom,
+brain mask, the prior's quantile); elsewhere it prepares it on the host with
+numpy and scipy and uploads the prepared volume and mask.
+
 Under ``utils.trace.recording()`` a request records a ``serve.request``
-span around its stages (``serve.zoom``, ``serve.mask``, ``serve.upload``,
-``serve.erode``, ``serve.reconstruct``, ``serve.postprocess``,
-``serve.download``, ``serve.components``, and ``serve.download`` again for
-the mask) and counts its host syncs and labelling rounds.
+span around its stages (on the host ``serve.zoom``, ``serve.mask``,
+``serve.upload``; on the card ``serve.upload``, ``serve.normalize``,
+``serve.zoom``, ``serve.mask``; then ``serve.erode``,
+``serve.reconstruct``, ``serve.postprocess``, ``serve.download``,
+``serve.components``, and ``serve.download`` again for the mask) and counts
+its host syncs and labelling rounds, and ``serve.prep_device`` once for
+each request prepared on the card.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.config import Config, Op
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.data import (
     normalize_volume,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval import prep
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.eval.evaluate import (
     _eroded_mask,
     _postprocess,
@@ -125,6 +134,31 @@ class AnomalyDetector:
         det.calibration = calibration
         return det
 
+    def _prepare_host(self, volume: np.ndarray, target: Tuple[int, int],
+                      brainmask: Optional[np.ndarray]
+                      ) -> Tuple[torch.Tensor, torch.Tensor, float]:
+        """``detect``'s prep with numpy and scipy: (x and the brain mask,
+        (S, target_h, target_w) float32 on the device, and the prior's
+        quantile)."""
+        o = self.options
+        vol = normalize_volume(volume, method=o.normalizationMethod,
+                               upper_percentile=o.upperpercentile)
+        # (S, H, W)
+        x = _zoom_volume(vol, target)
+        with trace.span("serve.mask"):
+            if brainmask is not None:
+                skm = (_zoom_volume(brainmask.astype(np.float32), target,
+                                    seg=True) > 0.5).astype(np.float32)
+            else:
+                skm = (x > prep.MASK_LEVEL).astype(np.float32)
+            prior_q = float(np.quantile(vol, prep.PRIOR_QUANTILE))
+
+        with trace.span("serve.upload"):
+            xd = torch.from_numpy(x).to(self.device)
+            skmd = torch.from_numpy(skm).to(self.device)
+            trace.count("host_syncs", 2)
+        return xd, skmd, prior_q
+
     def detect(self, volume: np.ndarray,
                brainmask: Optional[np.ndarray] = None,
                threshold: Optional[float] = None) -> Dict[str, Any]:
@@ -133,30 +167,23 @@ class AnomalyDetector:
         Returns per-slice anomaly scores and the post-processed anomaly map
         at the model resolution, plus (when a threshold is set) the binary
         mask with small components removed.  Normalisation and resizing run
-        on the host; reconstruction and post-processing on the device, with
-        the random source ``volume_generator(device, 0)`` (``(0, i)`` for
-        MC sample i)."""
+        on a CUDA device for the ``scaling`` normalisation
+        (``eval/prep.py``), on the host otherwise; reconstruction and
+        post-processing on the device, with the random source
+        ``volume_generator(device, 0)`` (``(0, i)`` for MC sample i)."""
         with trace.span("serve.request",
                         request=trace.count("serve.requests")):
             c = self.config
             o = self.options
-            vol = normalize_volume(volume, method=o.normalizationMethod,
-                                   upper_percentile=o.upperpercentile)
-            # (S, H, W)
-            x = _zoom_volume(vol, (c.outputHeight, c.outputWidth))
-            with trace.span("serve.mask"):
-                if brainmask is not None:
-                    skm = (_zoom_volume(brainmask.astype(np.float32),
-                                        (c.outputHeight, c.outputWidth),
-                                        seg=True) > 0.5).astype(np.float32)
-                else:
-                    skm = (x > 0.05).astype(np.float32)
-                prior_q = float(np.quantile(vol, 0.9))
-
-            with trace.span("serve.upload"):
-                xd = torch.from_numpy(x).to(self.device)
-                skmd = torch.from_numpy(skm).to(self.device)
-                trace.count("host_syncs", 2)
+            target = (c.outputHeight, c.outputWidth)
+            if (self.device.type == "cuda"
+                    and o.normalizationMethod == "scaling"):
+                xd, skmd, prior_q = prep.prepare_device(
+                    volume, target, o.upperpercentile, self.device,
+                    brainmask)
+            else:
+                xd, skmd, prior_q = self._prepare_host(volume, target,
+                                                       brainmask)
             with trace.span("serve.erode"):
                 eroded = _eroded_mask(skmd, o)
                 del skmd  # freed before the reconstruction
