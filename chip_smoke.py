@@ -20,6 +20,14 @@ last line):
      the bytes bound;
      ``median_select_reference`` on the uniform volume's windows on the
      card: equal to the kernel, its mean and warp-max rounds;
+  2b. components: the kernel chain of ``ops/ccl.py`` (``csrc/ccl3d.cu``)
+     must equal the plain propagation (run to its fixpoint) at CC_SHAPE
+     (181, 128, 128), labels and size filter, on lesion blobs and on random
+     masks at densities 0.1 and 0.5; warm times by CUDA events of the
+     chain's size filter (one call a sample, and batched) and of the plain
+     version's (its rounds' syncs included), with the plain version's
+     rounds and the bytes bound; a profile of one call of each is queued
+     for phase 10, whose header counts its launches;
   3. serve: a full-width ``AE`` workdir (128x128 slices, zDim 128, seeded
      Glorot init, bf16 compute) with a fixed calibrated threshold serves 3
      lesioned 110-slice phantoms through ``infer --device cuda``; the kernel
@@ -148,8 +156,14 @@ last line):
      with the device's busy share over its own profiled span, printed and
      kept in ``build/chip_smoke_profile.txt``.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+Every served batch of requests (``infer`` and ``detect`` on the card)
+resets the median's and the components' counts and checks one median
+launch and one call of the components' kernel chain a request.
+
+The line before the last is ``{"kernels": [...]}`` (the median's
+``launches`` on the main path; the components chain's ``calls`` on the
+served requests, and its ``max_abs_err`` against the plain version); the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -168,6 +182,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "unsupervised_anomaly_detection_brain_mri_tpu_torch"
 SEED = 0
 SERVE_SHAPE = (110, 128, 128)
+CC_SHAPE = (181, 128, 128)  # a served scan at the model's resolution
 RAGGED_SHAPES = ((7, 37, 45), (2, 1, 5))
 N_REQUESTS = 3
 THRESHOLD = 0.25
@@ -206,11 +221,36 @@ FLIP_STEPS = 3
 DEVICE = "cuda"
 PROFILE_OUT = os.path.join(ROOT, "build", "chip_smoke_profile.txt")
 PROFILES = []  # (key, fn, title) queued for phase 9
+SERVED_CC = []  # kernel-chain calls of each served batch of requests
 
 
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def reset_served():
+    """Zero the median's and the components' call counts before a batch of
+    served requests."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+        ccl,
+        median,
+    )
+
+    median.LAUNCHES = 0
+    ccl.LAUNCHES = 0
+
+
+def check_served_cc(requests, what):
+    """Each of ``requests`` served requests since ``reset_served()``
+    labelled its components by one call of the kernel chain (and so by no
+    propagation round); keeps the count for the ``kernels`` line."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+
+    check(ccl.LAUNCHES == requests,
+          f"{what}: {ccl.LAUNCHES} component-chain calls for {requests} "
+          f"requests")
+    SERVED_CC.append(ccl.LAUNCHES)
 
 
 def card_peaks():
@@ -427,6 +467,93 @@ def phase_kernel():
                 warp_rounds=warp_rounds)
 
 
+def components_masks():
+    """The components' masks at CC_SHAPE, on the card: lesion blobs (a
+    Gaussian-smoothed normal field above 2.2 of its spread, ~1.4 % of the
+    voxels in ~1,200 components, as a served residual's lesions) and
+    random masks at densities 0.1 and 0.5 (above 26-connectivity's
+    percolation point: one component snakes through the volume)."""
+    import numpy as np
+    import torch
+    from scipy import ndimage as ndi
+
+    rng = np.random.default_rng(SEED)
+    field = ndi.gaussian_filter(rng.standard_normal(CC_SHAPE), 2.0)
+    masks = {"blobs": field / field.std() > 2.2}
+    for density in (0.1, 0.5):
+        masks[f"density {density}"] = rng.uniform(size=CC_SHAPE) < density
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in masks.items()}
+
+
+def phase_components():
+    """2b. The components' kernel chain against the plain propagation at
+    CC_SHAPE, then both timed on the lesion blobs, with the bytes bound."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+        postprocess as P,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
+        trace,
+    )
+
+    masks = components_masks()
+    min_size = 7
+    max_abs_err = 0.0  # over the labels and the filtered masks
+    for name, m in masks.items():
+        with trace.recording() as rec:
+            ref, conv = P.connected_components_3d_plain(
+                m, 10 ** 6, return_converged=True)
+        got = ccl.connected_components_3d_cuda(m)
+        check(conv and torch.equal(got, ref),
+              f"components kernel labels != plain at {CC_SHAPE} ({name})")
+        kept = ccl.filter_small_components_cuda(m, min_size)
+        kept_ref = P.filter_small_components_plain(m, min_size, 10 ** 6)
+        check(torch.equal(kept, kept_ref),
+              f"components kernel filter != plain at {CC_SHAPE} ({name})")
+        max_abs_err = max(max_abs_err,
+                          float((got.long() - ref.long()).abs().max()),
+                          float((kept - kept_ref).abs().max()))
+        n = int(P.num_components(ref))
+        print(f"[components] {CC_SHAPE} {name}: {100 * float(m.float().mean()):.2f}"
+              f" % foreground, {n} components, {rec.counters()['cc_rounds']} "
+              f"plain rounds: labels and filter equal")
+    blobs = masks["blobs"]
+    with trace.recording() as rec:
+        P.filter_small_components_plain(blobs, min_size)
+    rounds = rec.counters()["cc_rounds"]
+    kernel_ms = cuda_ms(lambda: ccl.filter_small_components_cuda(blobs,
+                                                                 min_size))
+    batched_ms = cuda_ms(lambda: ccl.filter_small_components_cuda(
+        blobs, min_size), batch=KERNEL_BATCH)
+    plain_ms = cuda_ms(lambda: P.filter_small_components_plain(blobs,
+                                                               min_size))
+    dense = masks["density 0.5"]
+    dense_ms = cuda_ms(lambda: ccl.filter_small_components_cuda(dense,
+                                                                min_size))
+    # least time: the bool mask read once, the float32 mask written once
+    bound_ms = 5 * blobs.numel() / card_peaks()[1] * 1e3
+    print(f"[components] size filter at {CC_SHAPE} on the blobs (CUDA "
+          f"events, median of 20 samples of one call): kernel chain "
+          f"{kernel_ms:.4f} ms ({batched_ms:.4f} ms a call batched "
+          f"{KERNEL_BATCH} back to back), bound {bound_ms * 1e3:.2f} us "
+          f"(bytes), {100 * bound_ms / batched_ms:.2f} % of it batched; plain "
+          f"{plain_ms:.4f} ms ({rounds} rounds, one sync each); kernel chain "
+          f"on density 0.5 {dense_ms:.4f} ms")
+    defer_profile("components kernel",
+                  lambda: ccl.filter_small_components_cuda(blobs, min_size),
+                  f"components: the kernel chain's size filter, one call at "
+                  f"{CC_SHAPE} (blobs)")
+    defer_profile("components plain",
+                  lambda: P.filter_small_components_plain(blobs, min_size),
+                  f"components: the plain size filter, one call at "
+                  f"{CC_SHAPE} (blobs)")
+    return dict(ms=kernel_ms, batched_ms=batched_ms, plain_ms=plain_ms,
+                dense_ms=dense_ms, bound_ms=bound_ms, rounds=rounds,
+                max_abs_err=max_abs_err)
+
+
 def make_workdir(base):
     import numpy as np
     import torch
@@ -490,7 +617,7 @@ def phase_serve(wd, scans):
     argv = ["infer", "--workdir", wd, "--device", "cuda"]
     for s in scans:
         argv += ["-i", s]
-    median.LAUNCHES = 0
+    reset_served()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
@@ -500,6 +627,7 @@ def phase_serve(wd, scans):
     check(launches == N_REQUESTS,
           f"median kernel launched {launches} times for {N_REQUESTS} "
           f"requests")
+    check_served_cc(N_REQUESTS, "infer")
     S, H, W = SERVE_SHAPE
     for i in range(N_REQUESTS):
         out = os.path.join(wd, "inference", f"phantom{i}")
@@ -520,10 +648,12 @@ def phase_serve(wd, scans):
 
     det = AnomalyDetector.from_workdir(wd, device="cuda")
     vol = np.asarray(open_volume(scans[0]).data, np.float32)
+    reset_served()
     res = det.detect(vol)
     check(res["anomaly_map"].shape == SERVE_SHAPE
           and np.isfinite(res["anomaly_map"]).all(), "detect anomaly map")
     detect_ms = host_ms(lambda: det.detect(vol))
+    check_served_cc(7, "warm detect (1 + 1 warm-up + 5 timed)")
     print(f"[serve] warm detect, one {S}x{H}x{W} request: {detect_ms:.3f} ms "
           f"(host clock, median of 5)")
 
@@ -700,13 +830,14 @@ def phase_train_evaluate(base, scan):
               f"AUPRC {row['AUPRC']:.4f} bestDice {row['bestDice']:.4f} "
               f"Dice {row['DiceScore']:.4f}")
 
-    median.LAUNCHES = 0
+    reset_served()
     out = os.path.join(base, "served")
     rc = cli.main(["infer", "--workdir", wd, "-i", scan, "-o", out,
                    "--device", DEVICE])
     served = median.LAUNCHES
     check(rc == 0 and served == 1,
           f"infer on the trained workdir: rc {rc}, {served} launches")
+    check_served_cc(1, "infer on the trained workdir")
     stem = os.path.basename(scan)[:-len(".nii.gz")]
     with open(os.path.join(out, f"{stem}.report.json")) as f:
         report = json.load(f)
@@ -1133,7 +1264,9 @@ def profile_summary(fn, title):
     device_ms = sum(_device_time_us(e) for e in kernels) / 1e3
     busy = device_ms / span_ms
     top = sorted(kernels, key=_device_time_us, reverse=True)[:12]
-    lines = [f"== {title}: device time {device_ms:.3f} ms of the profiled "
+    launches = sum(e.count for e in kernels)
+    lines = [f"== {title}: device time {device_ms:.3f} ms in {launches} "
+             f"kernels and copies, of the profiled "
              f"span {span_ms:.3f} ms ({100 * busy:.1f} % busy"
              + ("; above 100 %: a fault of the measurement" if busy > 1
                 else "") + ")"]
@@ -1397,12 +1530,13 @@ def serve_once(wd, scan, out):
     from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
 
-    median.LAUNCHES = 0
+    reset_served()
     rc = cli.main(["infer", "--workdir", wd, "-i", scan, "-o", out,
                    "--device", DEVICE])
     served = median.LAUNCHES
     check(rc == 0 and served == 1,
           f"infer on {wd}: rc {rc}, {served} launches")
+    check_served_cc(1, f"infer on {wd}")
     with open(os.path.join(wd, "calibration.json")) as f:
         calib = json.load(f)
     stem = os.path.basename(scan)[:-len(".nii.gz")]
@@ -1493,9 +1627,10 @@ def phase_vae_mc(base, scan):
     det = AnomalyDetector.from_workdir(wd, device=DEVICE)
     o, c = det.options, det.config
     vol = np.asarray(open_volume(scan).data, np.float32)
-    median.LAUNCHES = 0
+    reset_served()
     res = det.detect(vol)
     check(median.LAUNCHES == 1, f"MC detect: {median.LAUNCHES} launches")
+    check_served_cc(1, "MC detect")
     launches += median.LAUNCHES
     x = _zoom_volume(normalize_volume(vol, method=o.normalizationMethod,
                                       upper_percentile=o.upperpercentile),
@@ -3743,7 +3878,7 @@ def phase_real_data(base):
     isbi = cohorts["MSISBI2015"].patients_of("TEST")[0]
     scan = isbi["filtered_files"][0]
     out = os.path.join(root, "served")
-    median.LAUNCHES = 0
+    reset_served()
     t0 = time.perf_counter()
     rc = cli.main(["infer", "--workdir", wd, "-i", scan, "-o", out,
                    "--device", DEVICE])
@@ -3752,6 +3887,7 @@ def phase_real_data(base):
     served = median.LAUNCHES
     check(rc == 0 and served == 1,
           f"real-data infer: rc {rc}, {served} launches")
+    check_served_cc(1, "real-data infer")
     stem = os.path.basename(scan)[:-len(".nii")]
     with open(os.path.join(out, f"{stem}.report.json")) as f:
         report = json.load(f)
@@ -3768,10 +3904,11 @@ def phase_real_data(base):
         det.detect(vol)
         torch.cuda.synchronize()
 
-    median.LAUNCHES = 0
+    reset_served()
     detect_ms = host_ms(detect, n=3)
     check(median.LAUNCHES == 4, f"warm detect: {median.LAUNCHES} launches "
                                 "for 4 calls (1 warm-up, 3 timed)")
+    check_served_cc(4, "warm real-data detect")
     served += median.LAUNCHES
     print(f"[real] infer --device cuda of {os.path.basename(scan)} "
           f"({vol.shape[2]} slices of {vol.shape[0]}x{vol.shape[1]}): "
@@ -4070,6 +4207,7 @@ def main():
 
     build_s = timed_phase("1 device", phase_device)
     kern = timed_phase("2 kernel", phase_kernel)
+    comps = timed_phase("2b components", phase_components)
     base = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(base, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=base)
@@ -4232,6 +4370,11 @@ def main():
           f"{bench['value']} slices/s, vs_baseline {bench['vs_baseline']}, "
           f"{bench['detail']['median5_launches']} median kernel launches in "
           f"its own process; both roofline tools ran")
+    print(f"[summary] components at {CC_SHAPE}: kernel chain "
+          f"{comps['ms']:.4f} ms ({comps['batched_ms']:.4f} batched) vs plain "
+          f"{comps['plain_ms']:.4f} ms; {sum(SERVED_CC)} chain calls on the "
+          f"served paths ({len(SERVED_CC)} batches of requests, one call a "
+          f"request)")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",
@@ -4248,6 +4391,18 @@ def main():
         "served_ms": kern["served_ms"],
         "batched_ms": kern["batched_ms"],
         "served_batched_ms": kern["served_batched_ms"],
+    }, {
+        "name": "ccl3d",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/ccl3d.cu",
+        "replaces": None,
+        "calls": sum(SERVED_CC),
+        "max_abs_err": comps["max_abs_err"],
+        "ms": comps["ms"],
+        "plain_ms": comps["plain_ms"],
+        "bound_ms": comps["bound_ms"],
+        "bound_by": "bytes",
+        "batched_ms": comps["batched_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

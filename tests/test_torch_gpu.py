@@ -367,10 +367,11 @@ def test_program_spans_hold_their_kernels_on_the_profilers_clock(cuda):
 
 
 def _synchronising_calls(fn):
-    """(``host_syncs`` counted over ``fn()``, the Python stack of each
+    """(the trace counters over ``fn()``, the Python stack of each
     synchronising call that ``torch.cuda.set_sync_debug_mode("warn")``
-    reports while ``fn`` runs, innermost frame first).  After a training
-    epoch the mode's switch itself reports one, outside ``fn``."""
+    reports while ``fn`` runs, innermost frame first, followed by the
+    port's spans open at the call).  After a training epoch the mode's
+    switch itself reports one, outside ``fn``."""
     import traceback
     import warnings
 
@@ -384,9 +385,11 @@ def _synchronising_calls(fn):
         if running and "synchroniz" in str(message):
             stack = [f for f in traceback.extract_stack()[:-1]
                      if not f.filename.endswith("warnings.py")]
+            spans = [s["name"] for s in running[0].spans()
+                     if s["end_ns"] == 0]
             reported.append(" <- ".join(
                 f"{f.filename.rsplit('/', 2)[-1]}:{f.lineno} {f.name}"
-                for f in reversed(stack[-6:])))
+                for f in reversed(stack[-6:])) + " in " + "/".join(spans))
 
     torch.cuda.synchronize()
     with warnings.catch_warnings():
@@ -395,12 +398,12 @@ def _synchronising_calls(fn):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with trace.recording() as rec:
-                running.append(True)
+                running.append(rec)
                 fn()
                 running.clear()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return rec.counters().get("host_syncs", 0), reported
+    return rec.counters(), reported
 
 
 @pytest.mark.gpu
@@ -414,9 +417,9 @@ def test_host_syncs_count_every_synchronising_call_of_an_epoch(cuda):
     pool = {"x": torch.rand(32, 32, 32, 1, device=cuda)}
     idxs = np.arange(32).reshape(4, 8)
     t._run_epoch("TRAIN", pool, idxs)
-    counted, reported = _synchronising_calls(
+    counters, reported = _synchronising_calls(
         lambda: t._run_epoch("TRAIN", pool, idxs))
-    assert counted == len(reported) == 1, reported
+    assert counters.get("host_syncs", 0) == len(reported) == 1, reported
 
 
 @pytest.mark.gpu
@@ -425,7 +428,9 @@ def test_host_syncs_count_every_synchronising_call_of_an_epoch(cuda):
 def test_host_syncs_count_every_synchronising_call_of_detect(cuda, trainer,
                                                              model):
     """One warm ``detect`` with a threshold that leaves lesions: every
-    synchronising call the debug mode reports is counted, and no more."""
+    synchronising call the debug mode reports is counted, and no more; the
+    components go through the kernel chain, with no sync inside
+    ``serve.components`` and no propagation round."""
     t = _vae_trainer(trainer, model, "cuda") if trainer == "VAE_You" else \
         get_trainer("AE")(Config(trainer="AE", model="autoencoder",
                                  outputWidth=32, outputHeight=32, zDim=16),
@@ -436,8 +441,18 @@ def test_host_syncs_count_every_synchronising_call_of_detect(cuda, trainer,
                                                minLesionSize=2))
     vol = make_phantom(np.random.default_rng(0), 48, 12, True)["volume"]
     det.threshold = float(np.quantile(det.detect(vol)["anomaly_map"], 0.99))
-    counted, reported = _synchronising_calls(lambda: det.detect(vol))
-    assert counted == len(reported), reported
+    counters, reported = _synchronising_calls(lambda: det.detect(vol))
+    assert counters.get("host_syncs", 0) == len(reported), reported
+    _assert_components_never_sync(counters, reported)
+
+
+def _assert_components_never_sync(counters, reported):
+    """One request's components went through the kernel chain once, with
+    no propagation round and no synchronising call inside
+    ``serve.components``."""
+    assert counters.get("cc_kernel") == counters.get("serve.requests") == 1
+    assert counters.get("cc_rounds", 0) == 0
+    assert not [r for r in reported if "serve.components" in r], reported
 
 
 def _serve_phantom():
@@ -518,7 +533,8 @@ def test_every_request_on_the_card_is_prepared_there(cuda):
 def test_host_syncs_count_every_synchronising_call_of_detect_with_a_brainmask(
         cuda):
     """A warm ``detect`` given a brain mask (uploaded and zoomed on the
-    card): every synchronising call the debug mode reports is counted."""
+    card): every synchronising call the debug mode reports is counted, and
+    none lies inside ``serve.components``."""
     t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
                                  outputWidth=32, outputHeight=32, zDim=16),
                           device="cuda")
@@ -529,5 +545,109 @@ def test_host_syncs_count_every_synchronising_call_of_detect_with_a_brainmask(
     vol, mask = ph["volume"], ph["brainmask"]
     det.threshold = float(np.quantile(
         det.detect(vol, mask)["anomaly_map"], 0.99))
-    counted, reported = _synchronising_calls(lambda: det.detect(vol, mask))
-    assert counted == len(reported), reported
+    counters, reported = _synchronising_calls(lambda: det.detect(vol, mask))
+    assert counters.get("host_syncs", 0) == len(reported), reported
+    _assert_components_never_sync(counters, reported)
+
+
+def _ccl_mask(case):
+    """The components' data sets: random masks at four densities (0.5 is
+    above 26-connectivity's percolation point: one component snakes
+    through the volume), a stack of 20-slice chunks, lesion blobs at the
+    serving shape, one voxel, and masks with no foreground."""
+    import _torch_ccl as C
+
+    rng = np.random.default_rng(11)
+    if case.startswith("density"):
+        return rng.uniform(size=(24, 48, 40)) < float(case.split("_")[1])
+    if case == "stack":
+        return rng.uniform(size=(3, 20, 64, 64)) < 0.3
+    if case == "serving":
+        return C.lesion_blobs((181, 128, 128), 3)
+    if case == "one_voxel":
+        return np.ones((1, 1, 1), bool)
+    if case == "empty":
+        return np.zeros((9, 16, 16), bool)
+    if case == "empty_stack":
+        return np.zeros((2, 5, 8, 8), bool)
+    raise ValueError(case)
+
+
+CCL_CASES = ["density_0.01", "density_0.1", "density_0.3", "density_0.5",
+             "stack", "serving", "one_voxel", "empty", "empty_stack"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CCL_CASES)
+def test_cuda_components_equal_the_plain_propagation(cuda, case):
+    """The kernel chain's labels and size filter equal the plain
+    propagation's, run to its fixpoint on the card, bit for bit, and the
+    labels equal SciPy's renamed to the minimal flat index."""
+    import _torch_ccl as C
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+        postprocess as P,
+    )
+
+    m = torch.from_numpy(_ccl_mask(case)).to(cuda)
+    labels, conv = P.connected_components_3d(m, return_converged=True)
+    ref, ref_conv = P.connected_components_3d_plain(m, 10 ** 6,
+                                                    return_converged=True)
+    assert bool(torch.as_tensor(ref_conv).all())
+    assert bool(torch.as_tensor(conv).all())
+    assert labels.dtype == torch.int32 and labels.device.type == "cuda"
+    assert torch.equal(labels, ref)
+    np.testing.assert_array_equal(labels.cpu().numpy(),
+                                  C.min_index_labels(m.cpu().numpy()))
+    for min_size in (0, 7):
+        got = P.filter_small_components(m, min_size)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, P.filter_small_components_plain(
+            m, min_size, 10 ** 6))
+    assert torch.equal(ccl.filter_small_components_cuda(m.to(torch.uint8), 7),
+                       P.filter_small_components(m, 7))
+
+
+@pytest.mark.gpu
+def test_cuda_components_count_each_call_and_never_sync(cuda):
+    """``LAUNCHES`` and ``cc_kernel`` advance once a call of the chain;
+    no call reads anything back (``set_sync_debug_mode("error")``)."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+        postprocess as P,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
+        trace,
+    )
+
+    m = torch.rand(12, 32, 32, device=cuda) < 0.2
+    P.filter_small_components(m, 7)  # builds and loads the library
+    torch.cuda.synchronize()
+    before = ccl.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with trace.recording() as rec:
+            labels, conv = P.connected_components_3d(m, return_converged=True)
+            out, fconv = P.filter_small_components(m, 7, return_converged=True)
+            stacked = P.connected_components_3d(m.reshape(3, 4, 32, 32))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ccl.LAUNCHES == before + 3
+    assert rec.counters() == {"cc_kernel": 3}
+    assert conv is True and fconv is True
+    assert labels.shape == out.shape == m.shape
+    assert stacked.shape == (3, 4, 32, 32)
+
+
+@pytest.mark.gpu
+def test_cuda_components_reject_what_the_kernels_do_not_take(cuda):
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+
+    m = torch.rand(4, 8, 8, device=cuda) < 0.5
+    for bad in (m.transpose(1, 2), m.float(), m.to(torch.int32), m[0],
+                m.cpu()):
+        for fn in (ccl.connected_components_3d_cuda,
+                   lambda x: ccl.filter_small_components_cuda(x, 7)):
+            with pytest.raises(ValueError):
+                fn(bad)

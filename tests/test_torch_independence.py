@@ -20,7 +20,8 @@ BANNED = ("unsupervised_anomaly_detection_brain_mri_tpu", "jax", "jaxlib",
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "bench_torch.py"),
-           os.path.join(ROOT, "tests", "_torch_realdata.py")]
+           os.path.join(ROOT, "tests", "_torch_realdata.py"),
+           os.path.join(ROOT, "tests", "_torch_ccl.py")]
     # the tools written for the port; jax_workdir_to_torch.py reads a JAX
     # workdir with the JAX package, by design
     out += sorted(p for p in glob.glob(os.path.join(ROOT, "tools",

@@ -90,3 +90,45 @@ def test_residual_and_prior_equal_jax(keep_positive):
     got_p = TP.hyperintensity_prior_mask(got, torch.from_numpy(x), q)
     ref_p = JP.hyperintensity_prior_mask(ref, x, np.float32(q))
     np.testing.assert_array_equal(got_p.numpy(), np.asarray(ref_p))
+
+
+@pytest.mark.parametrize("shape,density", [
+    ((6, 12, 10), 0.1), ((6, 12, 10), 0.5), ((3, 4, 9, 8), 0.3),
+    ((2, 2, 5, 6, 7), 0.4), ((1, 1, 1), 1.0), ((4, 5, 6), 0.0)])
+def test_labels_are_one_plus_the_minimal_flat_index_as_scipy(shape, density):
+    """On converged inputs the labels equal SciPy's 26-connected
+    ``ndimage.label`` renamed to 1 + the flat index (within its volume) of
+    each component's minimal voxel, stacks included."""
+    import _torch_ccl as C
+
+    m = _mask(shape, density, 3)
+    got, conv = TP.connected_components_3d(torch.from_numpy(m), 10 ** 6,
+                                           return_converged=True)
+    assert bool(torch.as_tensor(conv).all())
+    np.testing.assert_array_equal(got.numpy(), C.min_index_labels(m))
+
+
+def test_cpu_masks_never_reach_the_kernels():
+    """A CPU tensor takes the plain propagation: the chain's ``LAUNCHES``
+    and ``cc_kernel`` stay put, ``cc_rounds`` counts its rounds; the CUDA
+    entries refuse it."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
+        trace,
+    )
+
+    m = torch.from_numpy(_mask((5, 11, 13), 0.3, 4))
+    before = ccl.LAUNCHES
+    with trace.recording() as rec:
+        labels, conv = TP.connected_components_3d(m, return_converged=True)
+        out = TP.filter_small_components(m, 7)
+    counters = rec.counters()
+    assert ccl.LAUNCHES == before
+    assert "cc_kernel" not in counters and counters["cc_rounds"] >= 2
+    assert conv is True
+    np.testing.assert_array_equal(
+        out.numpy(), TP.filter_small_components_plain(m, 7).numpy())
+    for fn in (ccl.connected_components_3d_cuda,
+               lambda x: ccl.filter_small_components_cuda(x, 7)):
+        with pytest.raises(ValueError):
+            fn(m)

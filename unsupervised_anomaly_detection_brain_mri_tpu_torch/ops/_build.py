@@ -85,4 +85,9 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.uad_median5_f32.restype = ctypes.c_int
+    lib.uad_ccl3d.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.uad_ccl3d.restype = ctypes.c_int
     return lib

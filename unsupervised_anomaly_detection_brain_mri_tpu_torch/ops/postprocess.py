@@ -5,11 +5,15 @@ postprocess.py`.  The semantics are the JAX package's, the formulation is
 the GPU's:
 
   * connected components keep the label "1 + flat index of the
-    component's minimal voxel" (26-connectivity, iterative min-label
-    propagation with the same ``max_iters``/``sweeps_per_check`` cap);
-    labelling works on the last three axes, so a (n, S, H, W) stack labels
-    n volumes at once with per-volume flat indices and no label crossing
-    from one volume to the next (the JAX package's ``vmap``);
+    component's minimal voxel" (26-connectivity); labelling works on the
+    last three axes, so a (n, S, H, W) stack labels n volumes at once with
+    per-volume flat indices and no label crossing from one volume to the
+    next (the JAX package's ``vmap``).  The path is chosen by the tensor's
+    device: a CUDA tensor goes through the hand-written union-find chain
+    of ``ops/ccl.py`` (``csrc/ccl3d.cu``), which always reaches the fixpoint
+    and never syncs, or raises; a CPU tensor through the plain version,
+    iterative min-label propagation with the JAX package's
+    ``max_iters``/``sweeps_per_check`` cap;
   * component sizes and distinct-label counts come from ``torch.bincount``
     plus a gather.  The TPU used sort-scans because random gathers
     serialise there; on a GPU the histogram is the natural form.
@@ -24,6 +28,7 @@ from typing import Tuple, Union
 
 import torch
 
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 _INF = 2 ** 30
@@ -89,21 +94,52 @@ def _seed(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
                         device=device).reshape(vol)
 
 
+def _converged(mask: torch.Tensor):
+    """The kernel chain's convergence flag, read with no sync: True for one
+    volume, a True bool tensor of the leading shape for a stack."""
+    if mask.ndim == 3:
+        return True
+    return torch.ones(mask.shape[:-3], dtype=torch.bool, device=mask.device)
+
+
 def connected_components_3d(mask: torch.Tensor, max_iters: int = 1024,
                             sweeps_per_check: int = 4,
                             return_converged: bool = False):
-    """26-connected labeling by iterative min-label propagation.
+    """26-connected labeling; the path is chosen by the mask's device.
 
     mask: (S, H, W), or (..., S, H, W) to label each volume on its own.
-    Each round runs ``sweeps_per_check`` 3^3 min-pool sweeps before the
-    convergence test (one host sync per round).  A component whose minimal
-    voxel is more than ``max_iters * sweeps_per_check`` steps from its
-    farthest voxel is returned partially merged; ``return_converged=True``
-    also returns whether the fixpoint was reached: a bool for one volume,
-    a bool tensor of the leading shape for a stack.
+    A CUDA mask is labelled by the union-find kernel chain
+    (``ops/ccl.py``), which always reaches the fixpoint, reads nothing back
+    to the host and ignores ``max_iters`` and ``sweeps_per_check``; its
+    convergence flag is True.  A CPU mask takes
+    ``connected_components_3d_plain`` (min-label propagation under the
+    ``max_iters`` cap).  ``return_converged=True`` also returns whether the
+    fixpoint was reached: a bool for one volume, a bool tensor of the
+    leading shape for a stack.
 
     Returns int32 labels: 0 = background, else 1 + flat index (within its
     volume) of the component's minimal voxel.
+    """
+    if mask.is_cuda:
+        out = ccl.connected_components_3d_cuda(
+            mask.to(torch.bool).contiguous())
+        return (out, _converged(mask)) if return_converged else out
+    return connected_components_3d_plain(mask, max_iters, sweeps_per_check,
+                                         return_converged)
+
+
+def connected_components_3d_plain(mask: torch.Tensor, max_iters: int = 1024,
+                                  sweeps_per_check: int = 4,
+                                  return_converged: bool = False):
+    """26-connected labeling by iterative min-label propagation, on any
+    device (the CPU path, and the kernel chain's yardstick on the card).
+
+    Each round runs ``sweeps_per_check`` 3^3 min-pool sweeps before the
+    convergence test (one host sync per round, counted in ``cc_rounds``).
+    A component whose minimal voxel is more than
+    ``max_iters * sweeps_per_check`` steps from its farthest voxel is
+    returned partially merged.  Labels and ``return_converged`` as in
+    ``connected_components_3d``.
     """
     mask = mask.to(torch.bool)
     seed = _seed(mask.shape, mask.device)
@@ -189,16 +225,33 @@ def filter_small_components(mask: torch.Tensor, min_size: int = 7,
                             ) -> Union[torch.Tensor, Tuple[torch.Tensor, bool]]:
     """Remove 26-connected components with <= ``min_size`` voxels.
     mask: (S, H, W) -> float32 0/1 (plus the convergence bool of
-    ``connected_components_3d`` with ``return_converged``)."""
+    ``connected_components_3d`` with ``return_converged``).  A CUDA mask
+    goes through the kernel chain (``ops/ccl.py``: labels, atomic counts
+    and the filter with no host sync; ``max_iters`` does not apply and the
+    flag is True), a CPU mask through ``filter_small_components_plain``."""
     with trace.span("serve.components"):
-        m = mask.to(torch.bool)
-        labels, converged = connected_components_3d(
-            m, max_iters, return_converged=True)
-        keep = per_voxel_component_size(labels) > min_size
-        out = (m & keep).to(torch.float32)
-        if return_converged:
-            return out, converged
-        return out
+        if mask.is_cuda:
+            out = ccl.filter_small_components_cuda(
+                mask.to(torch.bool).contiguous(), min_size)
+            return (out, _converged(mask)) if return_converged else out
+        return filter_small_components_plain(mask, min_size, max_iters,
+                                             return_converged)
+
+
+def filter_small_components_plain(mask: torch.Tensor, min_size: int = 7,
+                                  max_iters: int = 1024,
+                                  return_converged: bool = False):
+    """``filter_small_components`` by the plain propagation
+    (``connected_components_3d_plain``) and bincount sizes, on any
+    device."""
+    m = mask.to(torch.bool)
+    labels, converged = connected_components_3d_plain(
+        m, max_iters, return_converged=True)
+    keep = per_voxel_component_size(labels) > min_size
+    out = (m & keep).to(torch.float32)
+    if return_converged:
+        return out, converged
+    return out
 
 
 def detection_counts_chunk(pred: torch.Tensor, gt: torch.Tensor,

@@ -31,7 +31,10 @@ Names are dotted by layer (``train.*``, ``serve.*``).  Counters:
     and ``detect``.  They are counted on every device, the CPU's too.
     Checkpoints, TensorBoard and ``evaluate()`` are not counted;
   * ``cc_rounds``: the rounds of ``ops/postprocess.py::
-    connected_components_3d`` (one convergence test each);
+    connected_components_3d_plain``, the propagation that labels a CPU
+    tensor (one convergence test each);
+  * ``cc_kernel``: the calls labelled by ``ops/ccl.py``'s kernel chain,
+    which labels a CUDA tensor with no round and no sync;
   * ``serve.requests``: the requests ``detect`` served (the ``request``
     attribute of each ``serve.request`` span is its running total).
 """
