@@ -93,6 +93,9 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import ( 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils.misc import (  # noqa: E402
     device_peaks,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (  # noqa: E402
+    trace,
+)
 
 METRIC = "brainweb_ae_train_throughput"
 UNIT = "slices/sec/chip"
@@ -501,19 +504,15 @@ def vae_you_restoration(run: Run) -> None:
 
 def median(run: Run) -> None:
     """The 5^3 median of a uniform ``depth``-slice volume: the kernel's
-    output must equal the plain version's and the launch counter must rise
-    by one per kernel call; then volumes/s of both."""
+    output must equal the plain version's and the trace counter
+    ``median_kernel`` must rise by one per kernel call; then volumes/s of
+    both."""
     a = run.args
     vol = run.uniform(a.depth, a.image, a.image)
     per_call = 1 if run.device.type == "cuda" else 0  # the CPU: plain
-    before = MED.LAUNCHES
-    got = MED.median_filter_3d_auto(vol)
-    if not torch.equal(got, MED.median_filter_3d(vol)):
-        raise AssertionError("the median kernel's output differs from the "
-                             "plain version's")
-    if MED.LAUNCHES - before != per_call:
-        raise AssertionError(f"{MED.LAUNCHES - before} median kernel "
-                             f"launches for one call, expected {per_call}")
+
+    def launches() -> int:
+        return rec.counters().get("median_kernel", 0)
 
     def calls(f):
         def run_n(n: int) -> torch.Tensor:
@@ -522,13 +521,20 @@ def median(run: Run) -> None:
             return out
         return run_n
 
-    vps = run.clock.best_rate(calls(MED.median_filter_3d_auto), 1, 5)
-    launches = MED.LAUNCHES - before
-    if launches != per_call * (1 + 5 * TRIALS):
-        raise AssertionError(f"{launches} median kernel launches, expected "
-                             f"{per_call * (1 + 5 * TRIALS)}")
+    with trace.recording() as rec:
+        got = MED.median_filter_3d_auto(vol)
+        if not torch.equal(got, MED.median_filter_3d(vol)):
+            raise AssertionError("the median kernel's output differs from "
+                                 "the plain version's")
+        if launches() != per_call:
+            raise AssertionError(f"{launches()} median kernel launches for "
+                                 f"one call, expected {per_call}")
+        vps = run.clock.best_rate(calls(MED.median_filter_3d_auto), 1, 5)
+        if launches() != per_call * (1 + 5 * TRIALS):
+            raise AssertionError(f"{launches()} median kernel launches, "
+                                 f"expected {per_call * (1 + 5 * TRIALS)}")
     plain_vps = run.clock.best_rate(calls(MED.median_filter_3d), 1, 5)
-    run.record(median5_equals_plain=True, median5_launches=launches,
+    run.record(median5_equals_plain=True, median5_launches=launches(),
                median5_volumes_per_sec=round(vps, 2),
                median5_plain_volumes_per_sec=round(plain_vps, 2),
                kernel_vs_plain_median_speedup=round(vps / plain_vps, 2))

@@ -22,6 +22,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median as M
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.registry import (
     get_trainer,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 
 @pytest.fixture
@@ -68,10 +69,10 @@ KINDS = ["uniform", "tied", "spread", "constant", "two_level"]
                                    (1, 1, 1)])
 def test_cuda_kernel_equals_plain(cuda, shape, kind):
     vol = torch.from_numpy(_vol(shape, 5, kind)).to(cuda)
-    before = M.LAUNCHES
-    got = M.median_filter_3d_auto(vol, 5)
+    with trace.recording() as rec:
+        got = M.median_filter_3d_auto(vol, 5)
     torch.cuda.synchronize()
-    assert M.LAUNCHES == before + 1
+    assert rec.counters() == {"median_kernel": 1}
     assert torch.equal(got, M.median_filter_3d(vol))
 
 
@@ -165,11 +166,11 @@ def test_evaluate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
     for dev in ("cuda", "cpu"):
         t = get_trainer("AE")(cfg, device=dev)
         t.init_state()
-        before = M.LAUNCHES
-        res[dev] = E.evaluate(ds, t, Options(
-            paths=PathConfig(sample_dir=str(tmp_path / dev)),
-            erosionIterations=3), cfg)
-        launches = M.LAUNCHES - before
+        with trace.recording() as rec:
+            res[dev] = E.evaluate(ds, t, Options(
+                paths=PathConfig(sample_dir=str(tmp_path / dev)),
+                erosionIterations=3), cfg)
+        launches = rec.counters().get("median_kernel", 0)
         assert launches == (len(ds.patients_of("TEST")) if dev == "cuda"
                             else 0)
     for k in ("diff_AUC", "diff_AUPRC", "bestDiceScore"):
@@ -243,11 +244,11 @@ def test_mc_evaluate_on_card(cuda, tmp_path):
     t = _vae_trainer("VAE", "variational_autoencoder", "cuda",
                      dropout_rate=0.5)
     ds = _small_cohort(True)
-    before = M.LAUNCHES
-    res = E.evaluate(ds, t, Options(
-        paths=PathConfig(sample_dir=str(tmp_path)), erosionIterations=3,
-        numMonteCarloSamples=4), t.config)
-    assert M.LAUNCHES - before == len(ds.patients_of("TEST"))
+    with trace.recording() as rec:
+        res = E.evaluate(ds, t, Options(
+            paths=PathConfig(sample_dir=str(tmp_path)), erosionIterations=3,
+            numMonteCarloSamples=4), t.config)
+    assert rec.counters()["median_kernel"] == len(ds.patients_of("TEST"))
     ev = res["epistemic_variance"]
     assert np.isfinite(ev).all() and (ev > 0).any()
     assert not ev[res["reconstructions"] == 0].any()
@@ -333,10 +334,6 @@ def test_program_spans_hold_their_kernels_on_the_profilers_clock(cuda):
         os.path.abspath(__file__))))
     from benchmark.common.trace import DeviceTrace
 
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
-        trace,
-    )
-
     t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
                                  outputWidth=32, outputHeight=32, zDim=16,
                                  batchsize=8), device="cuda")
@@ -374,10 +371,6 @@ def _synchronising_calls(fn):
     switch itself reports one, outside ``fn``."""
     import traceback
     import warnings
-
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
-        trace,
-    )
 
     reported, running = [], []
 
@@ -509,10 +502,6 @@ def test_detect_prepares_on_card_as_on_cpu_at_the_serving_geometry(
 @pytest.mark.gpu
 def test_every_request_on_the_card_is_prepared_there(cuda):
     """``serve.prep_device`` counts each ``detect`` on the card."""
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
-        trace,
-    )
-
     t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
                                  outputWidth=32, outputHeight=32, zDim=16),
                           device="cuda")
@@ -611,20 +600,15 @@ def test_cuda_components_equal_the_plain_propagation(cuda, case):
 
 @pytest.mark.gpu
 def test_cuda_components_count_each_call_and_never_sync(cuda):
-    """``LAUNCHES`` and ``cc_kernel`` advance once a call of the chain;
-    no call reads anything back (``set_sync_debug_mode("error")``)."""
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import ccl
+    """``cc_kernel`` advances once a call of the chain; no call reads
+    anything back (``set_sync_debug_mode("error")``)."""
     from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
         postprocess as P,
-    )
-    from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import (
-        trace,
     )
 
     m = torch.rand(12, 32, 32, device=cuda) < 0.2
     P.filter_small_components(m, 7)  # builds and loads the library
     torch.cuda.synchronize()
-    before = ccl.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         with trace.recording() as rec:
@@ -633,7 +617,6 @@ def test_cuda_components_count_each_call_and_never_sync(cuda):
             stacked = P.connected_components_3d(m.reshape(3, 4, 32, 32))
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert ccl.LAUNCHES == before + 3
     assert rec.counters() == {"cc_kernel": 3}
     assert conv is True and fconv is True
     assert labels.shape == out.shape == m.shape

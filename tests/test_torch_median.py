@@ -18,6 +18,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu.ops.pallas_median import (
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import _build
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median as M
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 SHAPES = [(1, 5, 6), (2, 7, 9), (7, 9, 11), (7, 16, 16), (2, 1, 5),
           (3, 1, 1), (16, 32, 32)]
@@ -75,17 +76,16 @@ def test_symmetric_pad_matches_numpy_for_tiny_axes():
 
 def test_auto_dispatch_on_cpu_uses_plain_version_without_launch():
     vol = torch.from_numpy(_vol((4, 9, 7), seed=4))
-    before = M.LAUNCHES
-    got = M.median_filter_3d_auto(vol, 5)
-    assert M.LAUNCHES == before
+    with trace.recording() as rec:
+        got = M.median_filter_3d_auto(vol, 5)
+    assert "median_kernel" not in rec.counters()
     assert torch.equal(got, M.median_filter_3d(vol))
 
 
 def test_cuda_wrapper_rejects_cpu_tensor():
-    before = M.LAUNCHES
-    with pytest.raises(ValueError, match="CUDA"):
+    with trace.recording() as rec, pytest.raises(ValueError, match="CUDA"):
         M.median_filter_3d_cuda(torch.zeros(3, 4, 5))
-    assert M.LAUNCHES == before
+    assert "median_kernel" not in rec.counters()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

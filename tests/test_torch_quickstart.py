@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NOTEBOOK = os.path.join(ROOT, "examples", "quickstart_torch.ipynb")
@@ -45,9 +45,9 @@ def test_notebook_runs_on_the_cpu(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     cells = code_cells()
     ns = {}
-    median.LAUNCHES = 0
-    for src in [SMALL] + cells[1:]:
-        exec(compile(src, NOTEBOOK, "exec"), ns)
+    with trace.recording() as rec:
+        for src in [SMALL] + cells[1:]:
+            exec(compile(src, NOTEBOOK, "exec"), ns)
     assert ns["DEVICE"] == "cpu" and ns["trainer"].device.type == "cpu"
     assert ns["model"] is ns["trainer"].model
     for k in ("diff_AUC", "diff_AUPRC", "bestDiceScore"):
@@ -55,4 +55,5 @@ def test_notebook_runs_on_the_cpu(tmp_path, monkeypatch):
     assert np.isfinite(ns["thresh"]) and np.isfinite(ns["fixed"]["DiceScore"])
     assert ns["prior"].shape == (4, 32, 32, 1)
     assert len(ns["roc"]["fpr"]) == 256
-    assert median.LAUNCHES == 0  # the plain median on the CPU
+    # the plain median on the CPU
+    assert "median_kernel" not in rec.counters()

@@ -10,6 +10,7 @@ quality tables' tolerances (training trajectories are not compared
 element by element).  Then ``infer`` of an MSISBI2015 scan with the JAX
 run's weights and calibration in both packages."""
 
+import contextlib
 import json
 import os
 import re
@@ -26,7 +27,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu.data.volume import (
     open_volume,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
-from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import median
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 ARGV = ["--preset", "AE", "-w", "32", "-g", "32", "-z", "16", "-b", "8",
         "-E", "1", "-s", "0", "-e", str(N), "--precision", "float32"]
@@ -68,13 +69,15 @@ def protocol(tmp_path_factory):
         tree = os.path.join(root, "data")
         shutil.copytree(base / "src", tree)
         wd, metrics = os.path.join(root, "wd"), os.path.join(root, "m.jsonl")
-        median.LAUNCHES = 0
-        rc = main(ARGV + extra + ["-c", _paths_file(root, tree), "--workdir",
-                                  wd, "--metrics-out", metrics])
+        with (trace.recording() if pkg == "port"
+              else contextlib.nullcontext()) as rec:
+            rc = main(ARGV + extra + ["-c", _paths_file(root, tree),
+                                      "--workdir", wd, "--metrics-out",
+                                      metrics])
         with open(metrics) as f:
             rows = [json.loads(line) for line in f]
-        runs[pkg] = dict(rc=rc, wd=wd, rows=rows, tree=tree,
-                         launches=median.LAUNCHES)
+        runs[pkg] = dict(rc=rc, wd=wd, rows=rows, tree=tree, launches=(
+            rec.counters().get("median_kernel", 0) if rec else None))
     return runs
 
 

@@ -10,9 +10,9 @@ labels are those of ``ops/postprocess.py``'s propagation at its fixpoint:
 component's minimal voxel.  The plain version, and the dispatch by the
 tensor's device, live in ``ops/postprocess.py``.
 
-``LAUNCHES`` counts calls of the chain (never plain-version calls), and
-each call adds one to the trace counter ``cc_kernel``, so a run can show
-that its components went through the kernels.
+Each call of the chain (never a plain-version call) adds one to the trace
+counter ``cc_kernel`` (``utils/trace.py``), so a recorded run can show that
+its components went through the kernels.
 """
 
 from __future__ import annotations
@@ -24,8 +24,6 @@ import torch
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
-LAUNCHES = 0
-
 _MAX_VOLUMES = 65535  # CUDA grid y limit: one grid row a volume
 _MAX_VOXELS = 2 ** 31 - 1  # a volume's flat indices and labels are int32
 
@@ -33,7 +31,6 @@ _MAX_VOXELS = 2 ** 31 - 1  # a volume's flat indices and labels are int32
 def _run(mask: torch.Tensor, min_size: Optional[int]):
     """(labels int32, the float32 0/1 mask of the components of more than
     ``min_size`` voxels or None) by the kernel chain."""
-    global LAUNCHES
     if not mask.is_cuda:
         raise ValueError("the CUDA components need a CUDA tensor; "
                          "ops/postprocess.py dispatches by device")
@@ -73,7 +70,6 @@ def _run(mask: torch.Tensor, min_size: Optional[int]):
                            0 if min_size is None else min_size, stream)
     if rc != 0:
         raise RuntimeError(f"ccl3d kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
     trace.count("cc_kernel")
     return labels, out
 

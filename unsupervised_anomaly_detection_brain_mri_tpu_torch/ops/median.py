@@ -21,15 +21,16 @@ on rows of 125 window values, and returns the rounds it took: the tests and
 ``chip_smoke.py`` hold the rule against a sort with it.  The main path
 never calls it.
 
-``LAUNCHES`` counts kernel launches (never plain-version calls), so a run
-can show that its main path went through the kernel.
+Each kernel launch (never a plain-version call) adds one to the trace
+counter ``median_kernel`` (``utils/trace.py``), so a recorded run can show
+that its main path went through the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-LAUNCHES = 0
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 _MAX_SLICES = 65535 * 8  # CUDA grid z limit times slices per block
 _WINDOW = 125
@@ -141,7 +142,6 @@ def median_filter_3d_cuda(vol: torch.Tensor) -> torch.Tensor:
     """5^3 median of a contiguous float32 (S, H, W) CUDA tensor by the
     hand-written kernel ``csrc/median5.cu``.  Raises on any other input and
     on a failed build or launch."""
-    global LAUNCHES
     if not vol.is_cuda:
         raise ValueError("median_filter_3d_cuda needs a CUDA tensor; use "
                          "median_filter_3d_auto to dispatch by device")
@@ -165,7 +165,7 @@ def median_filter_3d_cuda(vol: torch.Tensor) -> torch.Tensor:
                                  stream)
     if rc != 0:
         raise RuntimeError(f"median5 kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    trace.count("median_kernel")
     return out
 
 

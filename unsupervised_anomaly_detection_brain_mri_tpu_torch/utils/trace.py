@@ -35,6 +35,8 @@ Names are dotted by layer (``train.*``, ``serve.*``).  Counters:
     tensor (one convergence test each);
   * ``cc_kernel``: the calls labelled by ``ops/ccl.py``'s kernel chain,
     which labels a CUDA tensor with no round and no sync;
+  * ``median_kernel``: the launches of ``ops/median.py``'s 5^3 median
+    kernel, which filters a CUDA tensor;
   * ``serve.requests``: the requests ``detect`` served (the ``request``
     attribute of each ``serve.request`` span is its running total).
 """
