@@ -4,8 +4,8 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It checks the port on the card.  The only times it takes are those of each
-hand-written kernel alone, by CUDA events (phases 2, 2b and 9i-b), and the
-device time of phase 2b's profiles; the end-to-end speed of training and
+hand-written kernel alone, by CUDA events (phases 2, 2b, 2c and 9i-b), and
+the device time of phase 2b's profiles; the end-to-end speed of training and
 serving is the benchmark's (``BENCHMARK.json``).
 
 Phases (any failed check raises, and the script exits non-zero without its
@@ -33,6 +33,15 @@ last line; a number that is gone went with a phase that only timed):
      version's (its rounds' syncs included), with the plain version's
      rounds and the bytes bound; a profile of one call of each is queued
      for phase 10;
+  2c. stem input gradient: ``stem_input_grad_cuda`` (``csrc/stem_dgrad.cu``)
+     must match the plain version on NCHW bf16 grad_out as a restoration
+     hands it, at STEM_SHAPES (the served 181 slices of 128x128, and an
+     odd shape): within one bf16 ulp plus 2^-15 of the summed magnitudes
+     of the products, and at least 99.9 % of the values equal; warm times
+     by CUDA events of the kernel (one call a sample, and batched), of the
+     plain version and of cuDNN's input gradient alone through
+     ``aten.convolution_backward`` (the ``library_ms`` yardstick; the port
+     no longer calls it for a restoration), and the bytes bound;
   3. serve: a full-width ``AE`` workdir (128x128 slices, zDim 128, seeded
      Glorot init, bf16 compute) with a fixed calibrated threshold serves 3
      lesioned 110-slice phantoms through ``infer --device cuda``, then one
@@ -62,7 +71,8 @@ last line; a number that is gone went with a phase that only timed):
      a. ``--preset VAE_You -E 1`` through the CLI: training, the lambda
         sweep on the card (``tv_lambda.json`` with lambda in [0, 1.9]), 3
         evaluations and the threshold fit with batched 150-step
-        restoration, then ``infer``; b. ``--preset VAE -n 4``: MC
+        restoration, then ``infer``, whose restoration launches the stem's
+        input-gradient kernel once a step (150); b. ``--preset VAE -n 4``: MC
         evaluation and a served MC request whose epistemic variance is
         finite, positive inside the eroded brainmask and 0 outside;
         c. ``--preset ceVAE`` (gradient restoration) and train steps of
@@ -148,15 +158,16 @@ last line; a number that is gone went with a phase that only timed):
      device time and the count of kernels and copies, and the kernels with
      the most time), printed and kept in ``build/chip_smoke_profile.txt``.
 
-The median's launches and the components' chain calls are read from the
-port's trace counters ``median_kernel`` and ``cc_kernel``
-(``utils/trace.py``).  Every served batch of requests (``infer`` and
-``detect`` on the card) checks one median launch and one call of the
-components' kernel chain a request.
+The median's launches, the components' chain calls and the stem kernel's
+launches are read from the port's trace counters ``median_kernel``,
+``cc_kernel`` and ``stem_dgrad_kernel`` (``utils/trace.py``).  Every served
+batch of requests (``infer`` and ``detect`` on the card) checks one median
+launch and one call of the components' kernel chain a request.
 
 The line before the last is ``{"kernels": [...]}`` (the median's
 ``launches`` on the main path; the components chain's ``calls`` on the
-served requests, and its ``max_abs_err`` against the plain version); the
+served requests, and its ``max_abs_err`` against the plain version; the
+stem kernel's ``launches`` in the served ``VAE_You`` restoration); the
 last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -177,6 +188,8 @@ SEED = 0
 SERVE_SHAPE = (110, 128, 128)
 CC_SHAPE = (181, 128, 128)  # a served scan at the model's resolution
 RAGGED_SHAPES = ((7, 37, 45), (2, 1, 5))
+# the stem's (B, H, W) inputs: a served scan's slices, and an odd shape
+STEM_SHAPES = ((181, 128, 128), (7, 37, 45))
 N_REQUESTS = 3
 THRESHOLD = 0.25
 TOL = 1e-4
@@ -213,6 +226,7 @@ DEVICE = "cuda"
 PROFILE_OUT = os.path.join(ROOT, "build", "chip_smoke_profile.txt")
 PROFILES = []  # (fn, title) queued for phase 10
 SERVED_CC = []  # kernel-chain calls of each served batch of requests
+SERVED_STEM = []  # stem kernel launches of the checked served restorations
 
 
 def check(cond, msg):
@@ -234,11 +248,13 @@ def counted():
 
 
 @contextlib.contextmanager
-def served(requests, what):
+def served(requests, what, stem_steps=None):
     """``requests`` requests served in the block, each by one median
     launch and by one call of the components' kernel chain (and so by no
-    propagation round); keeps the chain's count for the ``kernels`` line.
-    Yields ``counted()``'s reader."""
+    propagation round), and, where ``stem_steps`` is given, by that many
+    launches of the stem's input-gradient kernel (one a restoration
+    step); keeps the counts for the ``kernels`` line.  Yields
+    ``counted()``'s reader."""
     with counted() as n:
         yield n
     check(n() == requests, f"{what}: the median kernel launched {n()} "
@@ -246,6 +262,12 @@ def served(requests, what):
     check(n("cc_kernel") == requests, f"{what}: {n('cc_kernel')} "
           f"component-chain calls for {requests} requests")
     SERVED_CC.append(n("cc_kernel"))
+    if stem_steps is not None:
+        stem = n("stem_dgrad_kernel")
+        check(stem == stem_steps * requests,
+              f"{what}: the stem kernel launched {stem} times for "
+              f"{requests} requests of {stem_steps} restoration steps")
+        SERVED_STEM.append(stem)
 
 
 def card_peaks():
@@ -533,6 +555,100 @@ def phase_components():
     return dict(ms=kernel_ms, batched_ms=batched_ms, plain_ms=plain_ms,
                 dense_ms=dense_ms, bound_ms=bound_ms, rounds=rounds,
                 max_abs_err=max_abs_err)
+
+
+def stem_case(shape, g):
+    """bf16 grad_out (B, 32, OH, OW), NCHW as the encoder's backward hands
+    it, and a bf16 weight (32, 1, 5, 5) of the stem over (B, H, W) inputs,
+    with the stem's SAME pads."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
+        _same_pads,
+    )
+
+    B, H, W = shape
+    ph, pw = _same_pads(H, 5, 2), _same_pads(W, 5, 2)
+    OH, OW = (H + sum(ph) - 5) // 2 + 1, (W + sum(pw) - 5) // 2 + 1
+    grad_out = torch.randn((B, 32, OH, OW), generator=g,
+                           device=DEVICE).to(torch.bfloat16)
+    weight = (torch.randn((32, 1, 5, 5), generator=g, device=DEVICE)
+              * 0.2).to(torch.bfloat16)
+    return grad_out, weight, (H, W), ph, pw
+
+
+def phase_stem_dgrad():
+    """2c. The stem's input-gradient kernel against the plain version at
+    STEM_SHAPES in bf16, then it, the plain version and cuDNN's input
+    gradient timed at the served shape, with the bytes bound.  The kernel
+    and cuDNN sum 800 fp32 products each in their own order and round once
+    to bf16: they may differ by one bf16 ulp plus the fp32 sums' error
+    bound, 2^-15 of S, the sum of the products' magnitudes."""
+    import torch
+
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops.stem_dgrad import (
+        stem_input_grad_cuda,
+        stem_input_grad_plain,
+    )
+
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # S below in float32
+    try:
+        max_err, served = 0.0, None
+        for shape in STEM_SHAPES:
+            case = stem_case(shape, g)
+            grad_out, weight, size, ph, pw = case
+            with counted() as n:
+                got = stem_input_grad_cuda(*case)
+            want = stem_input_grad_plain(*case)
+            S = stem_input_grad_plain(grad_out.float().abs(),
+                                      weight.float().abs(), size, ph, pw)
+            torch.cuda.synchronize()
+            check(n("stem_dgrad_kernel") == 1,
+                  f"stem kernel: {n('stem_dgrad_kernel')} launches for one "
+                  f"call at {shape}")
+            check(got.dtype == torch.float32 and got.shape == want.shape,
+                  f"stem kernel: {got.dtype} {tuple(got.shape)} at {shape}")
+            ulp = torch.exp2(torch.floor(torch.log2(
+                want.abs().clamp_min(2.0 ** -126))) - 7)
+            excess = float(((got - want).abs() - ulp - 2.0 ** -15 * S).max())
+            equal = float((got == want).float().mean())
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            check(excess <= 0 and equal >= 0.999,
+                  f"stem kernel != plain at {shape}: {100 * equal:.3f} % "
+                  f"equal, {excess:.3e} beyond one ulp + 2^-15 S")
+            print(f"[stem] {shape} bf16 NCHW: {100 * equal:.4f} % of values "
+                  f"equal, max|diff| {err:.3e}, within one ulp + 2^-15 S")
+            if served is None:
+                served = case
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    grad_out, weight, (H, W), ph, pw = served
+    padded = torch.empty((grad_out.shape[0], 1, H + sum(ph), W + sum(pw)),
+                         dtype=grad_out.dtype, device=DEVICE)
+    kernel_ms = cuda_ms(lambda: stem_input_grad_cuda(*served))
+    batched_ms = cuda_ms(lambda: stem_input_grad_cuda(*served),
+                         batch=KERNEL_BATCH)
+    plain_ms = cuda_ms(lambda: stem_input_grad_plain(*served))
+    library_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+        grad_out, padded, weight, None, [2, 2], [0, 0], [1, 1], False,
+        [0, 0], 1, [True, False, False]))
+    # least time: grad_out read once, the float32 gradient written once
+    # (the weights' 1.6 kB aside); the 0.59 G FMAs on the fp32 cores take
+    # about as long
+    bound_ms = ((grad_out.numel() * grad_out.element_size()
+                 + grad_out.shape[0] * H * W * 4) / card_peaks()[1] * 1e3)
+    print(f"[stem] input gradient at {tuple(grad_out.shape)} -> "
+          f"({grad_out.shape[0]}, {H}, {W}) (CUDA events, median of 20 "
+          f"samples): kernel {kernel_ms:.4f} ms a call, {batched_ms:.4f} ms "
+          f"batched {KERNEL_BATCH} back to back; bound {bound_ms * 1e3:.2f} "
+          f"us (bytes), {100 * bound_ms / batched_ms:.2f} % of it batched; "
+          f"plain {plain_ms:.4f} ms; library (cuDNN's input gradient alone) "
+          f"{library_ms:.4f} ms")
+    return dict(max_abs_err=max_err, ms=kernel_ms, batched_ms=batched_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, library_ms=library_ms)
 
 
 def make_workdir(base):
@@ -1256,12 +1372,13 @@ def run_protocol(base, name, extra=()):
     return wd, launches, calib
 
 
-def serve_once(wd, scan, out):
+def serve_once(wd, scan, out, stem_steps=None):
     """``infer --device cuda`` of one scan on a trained workdir: one median
-    launch, the calibrated threshold."""
+    launch (and ``stem_steps`` stem kernel launches, where given), the
+    calibrated threshold."""
     from unsupervised_anomaly_detection_brain_mri_tpu_torch import cli
 
-    with served(1, f"infer on {wd}"):
+    with served(1, f"infer on {wd}", stem_steps):
         rc = cli.main(["infer", "--workdir", wd, "-i", scan, "-o", out,
                        "--device", DEVICE])
         check(rc == 0, f"infer on {wd}: rc {rc}")
@@ -1317,9 +1434,15 @@ def phase_lambda_protocol(base, scan, name):
     n_val = len(cohort.patients_of("VAL"))
     check(sum(groups) == 3 * n_test + n_val and max(groups) > 1,
           f"restoration groups {groups}")
-    launches += serve_once(wd, scan, os.path.join(base, f"served_{name}"))
+    # the served VAE_You restoration takes the stem's input gradient from
+    # the kernel at each of its steps
+    stem_steps = preset(name).restore_steps if name == "VAE_You" else None
+    launches += serve_once(wd, scan, os.path.join(base, f"served_{name}"),
+                           stem_steps)
     print(f"[{name}] lambda sweep on the card: lambda {lam}; restoration "
-          f"groups {groups} volumes; infer: one median launch")
+          f"groups {groups} volumes; infer: one median launch"
+          + ("" if stem_steps is None else
+             f", {stem_steps} stem kernel launches"))
     return launches, lam
 
 
@@ -3428,6 +3551,7 @@ def main():
     phase("1 device", phase_device)
     kern = phase("2 kernel", phase_kernel)
     comps = phase("2b components", phase_components)
+    stem = phase("2c stem input gradient", phase_stem_dgrad)
     base = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(base, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=base)
@@ -3535,6 +3659,11 @@ def main():
           f"{comps['plain_ms']:.4f} ms (CUDA events); {sum(SERVED_CC)} chain "
           f"calls on the served paths ({len(SERVED_CC)} batches of requests, "
           f"one call a request)")
+    print(f"[summary] stem input gradient at {STEM_SHAPES[0]}: kernel "
+          f"{stem['ms']:.4f} ms ({stem['batched_ms']:.4f} batched) vs plain "
+          f"{stem['plain_ms']:.4f} ms and cuDNN's {stem['library_ms']:.4f} ms "
+          f"(CUDA events); {sum(SERVED_STEM)} launches in the served VAE_You "
+          f"restoration")
     print(json.dumps({"kernels": [{
         "name": "median5",
         "route": "cuda",
@@ -3563,6 +3692,19 @@ def main():
         "bound_ms": comps["bound_ms"],
         "bound_by": "bytes",
         "batched_ms": comps["batched_ms"],
+    }, {
+        "name": "stem_dgrad",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/stem_dgrad.cu",
+        "replaces": None,
+        "launches": sum(SERVED_STEM),
+        "max_abs_err": stem["max_abs_err"],
+        "ms": stem["ms"],
+        "plain_ms": stem["plain_ms"],
+        "bound_ms": stem["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": stem["library_ms"],
+        "batched_ms": stem["batched_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -634,3 +634,177 @@ def test_cuda_components_reject_what_the_kernels_do_not_take(cuda):
                    lambda x: ccl.filter_small_components_cuda(x, 7)):
             with pytest.raises(ValueError):
                 fn(bad)
+
+
+def _stem_case(shape, dtype, channels_last, cuda):
+    """grad_out of a SAME k5 s2 stem over (B, H, W) inputs, its weight and
+    pads, from a seeded generator."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
+        layers,
+    )
+
+    B, H, W = shape
+    ph, pw = layers._same_pads(H, 5, 2), layers._same_pads(W, 5, 2)
+    OH, OW = (H + sum(ph) - 5) // 2 + 1, (W + sum(pw) - 5) // 2 + 1
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    g = torch.randn((B, 32, OH, OW), generator=gen, device=cuda).to(dtype)
+    if channels_last:
+        g = g.contiguous(memory_format=torch.channels_last)
+    w = (torch.randn((32, 1, 5, 5), generator=gen, device=cuda)
+         * 0.2).to(dtype)
+    return g, w, ph, pw
+
+
+def _library_input_grad(g, w, size, ph, pw):
+    """The library's input gradient of the stem (input only), cropped to
+    the unpadded input and cast to float32 as the pad's and the cast's
+    backwards do."""
+    H, W = size
+    x = torch.empty((g.shape[0], 1, H + sum(ph), W + sum(pw)),
+                    dtype=g.dtype, device=g.device)
+    grad = torch.ops.aten.convolution_backward(
+        g, x, w, None, [2, 2], [0, 0], [1, 1], False, [0, 0], 1,
+        [True, False, False])[0]
+    return grad[:, :, ph[0]:ph[0] + H, pw[0]:pw[0] + W].float()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,channels_last", [
+    (shape, dtype, False)
+    for shape in ((181, 128, 128), (8, 128, 128), (7, 37, 45))
+    for dtype in (torch.bfloat16, torch.float32)
+] + [((181, 128, 128), torch.bfloat16, True)])
+def test_stem_dgrad_kernel_matches_the_library_input_gradient(
+        cuda, monkeypatch, shape, channels_last, dtype):
+    """``csrc/stem_dgrad.cu`` against cuDNN's input gradient (TF32 off),
+    on NCHW grad_out as served, and once on channels-last grad_out, which
+    the wrapper makes contiguous.  Both sum 800 products in fp32 in their
+    own order and round once to the dtype, so they may differ by one ulp
+    of the dtype plus the fp32 sums' error bound, 200 terms of u = 2^-24
+    each over S, the sum of the products' magnitudes, for each: 2^-15 S
+    covers both.  In bf16 nearly every value rounds to the same number."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+        stem_dgrad,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g, w, ph, pw = _stem_case(shape, dtype, channels_last, cuda)
+    size = shape[1:]
+    with trace.recording() as rec:
+        got = stem_dgrad.stem_input_grad_cuda(g, w, size, ph, pw)
+    torch.cuda.synchronize()
+    assert rec.counters() == {"stem_dgrad_kernel": 1}
+    want = _library_input_grad(g, w, size, ph, pw)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    S = stem_dgrad.stem_input_grad_plain(g.float().abs(), w.float().abs(),
+                                         size, ph, pw)
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -126))) - 7)
+        assert float((got == want).float().mean()) >= 0.999
+    else:
+        ulp = torch.zeros_like(want)
+    excess = (got - want).abs() - ulp - 2.0 ** -15 * S
+    assert float(excess.max()) <= 0, float(excess.max())
+
+
+def _vae_you_128(cuda):
+    """The served VAE_You configuration: 128x128, zDim 128, bf16."""
+    cfg = Config(trainer="VAE_You", model="variational_autoencoder",
+                 outputWidth=128, outputHeight=128, zDim=128,
+                 intermediateResolutions=(8, 8), compute_dtype="bfloat16",
+                 restore_steps=150, tv_lambda=0.5)
+    t = get_trainer("VAE_You")(cfg, device="cuda")
+    t.init_state()
+    return t
+
+
+@pytest.mark.gpu
+def test_restoration_of_a_volume_launches_the_stem_kernel_each_step(cuda):
+    """A served 181-slice volume's 150 restoration steps take the stem's
+    input gradient from the kernel once a step, and leave every parameter
+    requiring grad."""
+    t = _vae_you_128(cuda)
+    vols = torch.rand(1, 181, 128, 128, 1, device=cuda)
+    with trace.recording() as rec:
+        out = t.reconstruct_volumes_device(
+            vols, generators=[torch.Generator(device=cuda).manual_seed(0)]
+        )["reconstruction"]
+    torch.cuda.synchronize()
+    assert rec.counters().get("stem_dgrad_kernel") == 150
+    assert bool(torch.isfinite(out).all())
+    assert all(p.requires_grad for p in t.model.parameters())
+
+
+@pytest.mark.gpu
+def test_restoration_step_points_as_the_library_path(cuda, monkeypatch):
+    """One restoration step's input gradient at the same input and noise,
+    through the kernel and through the library: the same direction (a
+    single step: the 150-step chain is chaotic)."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.models import (
+        layers,
+    )
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.train import (
+        restoration,
+    )
+
+    t = _vae_you_128(cuda)
+    x = torch.from_numpy(np.stack([
+        make_phantom(np.random.default_rng(s), 128, 4, False)["volume"]
+        for s in range(4)]).transpose(0, 3, 1, 2).reshape(16, 128, 128, 1)
+        .astype(np.float32)).to(cuda)
+    noise = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(16, 128)).astype(np.float32)).to(cuda)
+    grads, counts = [], []
+    for library in (False, True):
+        if library:
+            monkeypatch.setattr(layers.UnifiedEncoder, "_input_grad_only",
+                                lambda self, x: False)
+        with restoration.frozen(t.model), trace.recording() as rec:
+            grads.append(restoration.restoration_grads(
+                t._restoration_fn(False), x, 0.5, noise).flatten().double())
+        counts.append(rec.counters().get("stem_dgrad_kernel", 0))
+    assert counts == [1, 0]
+    cos = torch.dot(grads[0], grads[1]) / (grads[0].norm() * grads[1].norm())
+    assert 1 - float(cos) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["detect", "train_step"])
+def test_ae_launches_no_stem_kernel(cuda, call):
+    """AE serving forwards under no grad and AE training trains the
+    weights: neither takes the stem's input-gradient kernel."""
+    t = get_trainer("AE")(Config(trainer="AE", model="autoencoder",
+                                 outputWidth=32, outputHeight=32, zDim=16),
+                          device="cuda")
+    t.init_state()
+    with trace.recording() as rec:
+        if call == "detect":
+            AnomalyDetector(t, t.config, Options(erosionIterations=1,
+                                                 minLesionSize=2), 0.1
+                            ).detect(make_phantom(np.random.default_rng(0),
+                                                  48, 12, True)["volume"])
+        else:
+            t.train_step({"x": torch.rand(8, 32, 32, 1, device=cuda)})
+    torch.cuda.synchronize()
+    assert rec.counters().get("stem_dgrad_kernel", 0) == 0
+
+
+@pytest.mark.gpu
+def test_stem_dgrad_raises_on_a_failed_launch(cuda, monkeypatch):
+    """A non-zero return of the C function raises and counts nothing."""
+    from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops import (
+        stem_dgrad,
+    )
+
+    class Failing:
+        @staticmethod
+        def uad_stem_dgrad(*args):
+            return 1
+
+    monkeypatch.setattr(stem_dgrad, "load_library", lambda: Failing())
+    g, w, ph, pw = _stem_case((2, 37, 45), torch.bfloat16, False, cuda)
+    with trace.recording() as rec:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            stem_dgrad.stem_input_grad_cuda(g, w, (37, 45), ph, pw)
+    assert rec.counters() == {}

@@ -44,17 +44,39 @@ channels at half resolution (``dec_conv_d2s_head``) and ``depth_to_space``
 (2x2).  Both pack a 2x2 block in the JAX package's (dy, dx, c) order,
 channel ``(dy * 2 + dx) * C + c``; ``F.pixel_unshuffle`` and
 ``F.pixel_shuffle`` use (c, dy, dx), which agrees only at C = 1.
+
+Where a call can need only its input's gradient (the input restoration:
+eval mode, every parameter frozen), two things spare the card work:
+``kept_casts`` has each layer cast its frozen weight and bias to the
+compute dtype once for the block, not at every forward; and the encoder's 1-channel stem runs as
+``_StemConv``, the layer's own forward with the input's gradient from
+``ops/stem_dgrad.py`` (a hand-written kernel on the card) backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Mapping, Optional, Sequence, Tuple, Union
+from typing import (
+    Callable,
+    Dict,
+    Iterator,
+    Mapping,
+    Optional,
+    Sequence,
+    Tuple,
+    Union,
+)
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.ops.stem_dgrad import (
+    stem_input_grad_cuda,
+    stem_input_grad_plain,
+)
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.parallel.collectives import (
     all_gather_batch,
     copy_to_model,
@@ -224,16 +246,33 @@ class _ColumnParallel:
     shard_model`` sets ``tp``, the mesh, and cuts ``weight`` to this
     rank's rows of the out axis ``tp_dim``): the layer computes its shard
     of the output channels without the bias, the model group's shards are
-    gathered into the whole output, and the replicated bias is added."""
+    gathered into the whole output, and the replicated bias is added.
+
+    Also the layer's cast of its weight and bias to the compute dtype
+    (``_cast``), kept while ``kept_casts`` is open."""
 
     tp = None  # the MeshContext of a sharded layer
     tp_dim = 0  # the weight's out axis
+    # parameter name -> (its version, its cast) while kept_casts is open
+    kept: Optional[Dict[str, Tuple[int, torch.Tensor]]] = None
+
+    def _cast(self, name: str) -> torch.Tensor:
+        """The weight or the bias (``name``) in the compute dtype; cast
+        once while the casts are kept and the parameter requires no grad,
+        and again after an in-place change."""
+        p = getattr(self, name)
+        if self.kept is None or p.requires_grad:
+            return p.to(self.compute_dtype)
+        kept = self.kept.get(name)
+        if kept is None or kept[0] != p._version:
+            kept = self.kept[name] = (p._version, p.to(self.compute_dtype))
+        return kept[1]
 
     def _parallel(self, op: Callable, x: torch.Tensor, out_dim: int
                   ) -> torch.Tensor:
         y = op(copy_to_model(self.tp, x))
         y = gather_from_model(self.tp, y, out_dim)
-        bias = self.bias.to(self.compute_dtype)
+        bias = self._cast("bias")
         return y + (bias if out_dim == -1 else bias[:, None, None])
 
 
@@ -247,17 +286,46 @@ class Conv2d(_ColumnParallel, nn.Conv2d):
                          stride=stride, padding=0)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def same_pads(self, size: Sequence[int]
+                  ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """The SAME pads (before, after) of an input's rows and columns,
+        ``size`` its (H, W)."""
         k, s = self.kernel_size[0], self.stride[0]
-        ph = _same_pads(x.shape[-2], k, s)
-        pw = _same_pads(x.shape[-1], k, s)
+        return _same_pads(size[0], k, s), _same_pads(size[1], k, s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.stride[0]
+        ph, pw = self.same_pads(x.shape[-2:])
         x = x.to(self.compute_dtype)
         if any(ph + pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        w = self.weight.to(self.compute_dtype)
+        w = self._cast("weight")
         if self.tp is not None:
             return self._parallel(lambda t: F.conv2d(t, w, None, s), x, 1)
-        return F.conv2d(x, w, self.bias.to(self.compute_dtype), s)
+        return F.conv2d(x, w, self._cast("bias"), s)
+
+
+class _StemConv(torch.autograd.Function):
+    """A frozen 1-channel 5x5 stride-2 ``Conv2d`` differentiated with
+    respect to its float32 input only: forward, the layer's own ops (the
+    same values, bit for bit); backward, the input's float32 gradient from
+    ``ops/stem_dgrad.py``, by the kernel for a CUDA tensor and by the
+    plain version for a CPU one.  The weight's and the bias's gradients
+    are never computed."""
+
+    @staticmethod
+    def forward(ctx, x, conv):
+        ctx.conv, ctx.size = conv, tuple(x.shape[-2:])
+        return Conv2d.forward(conv, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        conv = ctx.conv
+        grad_in = (stem_input_grad_cuda if grad_out.is_cuda
+                   else stem_input_grad_plain)
+        return grad_in(grad_out, conv._cast("weight"), ctx.size,
+                       *conv.same_pads(ctx.size)), None
 
 
 # (stride, kernel) of the zoo's transposed convolutions, each pinned against
@@ -300,7 +368,7 @@ class ConvTranspose2d(_ColumnParallel, nn.ConvTranspose2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         H, W = x.shape[-2:]
         s = self.stride[0]
-        w = self.weight.to(self.compute_dtype)
+        w = self._cast("weight")
 
         def convt(t: torch.Tensor, bias: Optional[torch.Tensor]
                   ) -> torch.Tensor:
@@ -312,7 +380,7 @@ class ConvTranspose2d(_ColumnParallel, nn.ConvTranspose2d):
         x = x.to(self.compute_dtype)
         if self.tp is not None:
             return self._parallel(lambda t: convt(t, None), x, 1)
-        return convt(x, self.bias.to(self.compute_dtype))
+        return convt(x, self._cast("bias"))
 
 
 def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
@@ -331,10 +399,27 @@ class Linear(_ColumnParallel, nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.compute_dtype)
-        w = self.weight.to(self.compute_dtype)
+        w = self._cast("weight")
         if self.tp is not None:
             return self._parallel(lambda t: F.linear(t, w), x, -1)
-        return F.linear(x, w, self.bias.to(self.compute_dtype))
+        return F.linear(x, w, self._cast("bias"))
+
+
+@contextlib.contextmanager
+def kept_casts(model: nn.Module) -> Iterator[None]:
+    """Inside the block each convolution and dense layer of ``model``
+    casts a weight or a bias that requires no grad to the compute dtype
+    once, and hands the same copy out again while the parameter is not
+    changed in place.  A nested block leaves the outer one's casts."""
+    opened = [m for m in model.modules()
+              if isinstance(m, _ColumnParallel) and m.kept is None]
+    for m in opened:
+        m.kept = {}
+    try:
+        yield
+    finally:
+        for m in opened:
+            m.kept = None
 
 
 class Norm(nn.BatchNorm2d):
@@ -517,10 +602,28 @@ class UnifiedEncoder(nn.Module):
             c = filters
         self.out_channels = c
 
+    def _input_grad_only(self, x: torch.Tensor) -> bool:
+        """Whether this call of the 5x5 stride-2 stage 0 can need its
+        input's gradient and nothing else: eval mode, a float32 input that
+        requires grad under grad mode, a frozen weight and bias, one input
+        channel and no tensor parallelism.  Then the stem runs as
+        ``_StemConv`` (the same forward; the input's gradient by the
+        hand-written kernel on the card)."""
+        if self.training or not (torch.is_grad_enabled()
+                                 and x.requires_grad):
+            return False
+        conv = self.enc_conv_0
+        return (x.dtype == torch.float32
+                and not conv.weight.requires_grad
+                and not conv.bias.requires_grad
+                and conv.in_channels == 1 and conv.tp is None)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n):
             if i == 0 and self.s2d_stem:
                 x = self.enc_conv_0_s2d(space_to_depth(x, 2))
+            elif i == 0 and self._input_grad_only(x):
+                x = _StemConv.apply(x, self.enc_conv_0)
             else:
                 x = getattr(self, f"enc_conv_{i}")(x)
             x = leaky_relu(getattr(self, f"enc_norm_{i}")(x))

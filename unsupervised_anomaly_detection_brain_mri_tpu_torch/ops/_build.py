@@ -90,4 +90,8 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.uad_ccl3d.restype = ctypes.c_int
+    lib.uad_stem_dgrad.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 10, ctypes.c_void_p]
+    lib.uad_stem_dgrad.restype = ctypes.c_int
     return lib

@@ -153,6 +153,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.engine import (
     run_epoch,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.restoration import (
+    frozen,
     gradient_anomaly_map,
     restore_inputs,
 )
@@ -743,9 +744,10 @@ class BaseTrainer:
             source = VolumeGenerators(
                 [torch.Generator(device=self.device).manual_seed(0)
                  for _ in chunk], [bs] * len(chunk), bs)
-            restored = restore_inputs(
-                self._restoration_fn(False), xs, lam, c.restore_lr,
-                c.restore_steps, source)
+            with frozen(self.model):
+                restored = restore_inputs(
+                    self._restoration_fn(False), xs, lam, c.restore_lr,
+                    c.restore_steps, source)
             errs.append(L.sum_per_sample(torch.abs(xs - restored)))
         err = torch.cat(errs)
         if self.data_parallel:
@@ -1024,9 +1026,10 @@ class InputRestoration:
     def _restore(self, x: torch.Tensor, dropout: bool,
                  generator: Sample) -> torch.Tensor:
         c = self.config
-        return restore_inputs(self._restoration_fn(dropout), x,
-                              max(self.tv_lambda_value, 0.0), c.restore_lr,
-                              c.restore_steps, generator)
+        with frozen(self.model):
+            return restore_inputs(self._restoration_fn(dropout), x,
+                                  max(self.tv_lambda_value, 0.0),
+                                  c.restore_lr, c.restore_steps, generator)
 
     def _reconstruct(self, x, dropout, generator):
         """The restored input (``tv_lambda`` clamped at 0)."""

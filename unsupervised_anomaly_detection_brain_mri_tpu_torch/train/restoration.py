@@ -15,16 +15,26 @@ slice restores exactly as it would alone: ``tv_lambda`` may be a per-sample
 (B,) tensor, and zero-padded batch mates never change real slices.  Every
 step draws from the generator anew: fresh ``eps`` and, with MC dropout,
 fresh dropout masks.
+
+``frozen`` turns the model's parameters' ``requires_grad`` off around a
+restoration, which never needs their gradients, and keeps their casts to
+the compute dtype for it (``models/layers.py::kept_casts``): every step
+reuses the first step's casts, and the encoder's stem sees an input-only
+call (``UnifiedEncoder``) and takes its input gradient from
+``ops/stem_dgrad.py``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+import contextlib
+from typing import Callable, Iterator, Tuple, Union
 
 import torch
+from torch import nn
 
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.models.layers import (
     Sample,
+    kept_casts,
 )
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.losses import (
     l1_elem,
@@ -36,6 +46,23 @@ Tensor = torch.Tensor
 # outputs_fn(x, generator) -> (pixel_loss (B,), x_hat (B, H, W, C)) from ONE
 # model forward
 RestorationFn = Callable[[Tensor, Sample], Tuple[Tensor, Tensor]]
+
+
+@contextlib.contextmanager
+def frozen(model: nn.Module) -> Iterator[None]:
+    """Every parameter of ``model`` that requires grad stops requiring it
+    for the block, and requires it again after, also when the block
+    raises; inside, each frozen parameter is cast to the compute dtype
+    once."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        with kept_casts(model):
+            yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
 
 
 def restoration_grads(outputs_fn: RestorationFn, x: Tensor,

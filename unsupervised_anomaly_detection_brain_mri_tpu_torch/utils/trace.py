@@ -37,6 +37,9 @@ Names are dotted by layer (``train.*``, ``serve.*``).  Counters:
     which labels a CUDA tensor with no round and no sync;
   * ``median_kernel``: the launches of ``ops/median.py``'s 5^3 median
     kernel, which filters a CUDA tensor;
+  * ``stem_dgrad_kernel``: the launches of ``ops/stem_dgrad.py``'s kernel,
+    the input gradient of the encoder's 1-channel stem on a CUDA tensor
+    (one a restoration step);
   * ``serve.requests``: the requests ``detect`` served (the ``request``
     attribute of each ``serve.request`` span is its running total).
 """
