@@ -203,3 +203,79 @@ def test_detect_records_its_stages_in_order_and_counts_rounds(monkeypatch):
     # labelling round, the final convergence test 1, the sizes' bincount 2
     assert counters["host_syncs"] == rounds + 9
     assert counters["serve.requests"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the adversarial trainers' substeps
+
+
+def _wgan_trainer(monkeypatch, epoch=0):
+    from test_torch_fanogan_schlegl_reference import small_schlegl
+
+    small_schlegl(monkeypatch)
+    cfg = Config(trainer="fAnoGAN", model="fanogan_schlegl", batchsize=2,
+                 outputWidth=32, outputHeight=32, zDim=8,
+                 intermediateResolutions=(4, 4), learningrate=1e-3,
+                 compute_dtype="float32", seed=3)
+    t = get_trainer("fAnoGAN")(cfg, device="cpu")
+    t.init_state()
+    t.optimizer = t.make_optimizer()
+    t.epoch = epoch
+    return t
+
+
+def _substeps(spans):
+    """Each ``train.substep`` span's group and its children's names."""
+    return [(s["group"], [c["name"] for c in spans if c["parent"] == k])
+            for k, s in enumerate(spans) if s["name"] == "train.substep"]
+
+
+def test_a_wgan_step_records_its_substeps(monkeypatch):
+    """One WGAN step of ``fAnoGAN_schlegl``: a generator substep, then five
+    critic substeps, all under the step's span; each critic substep holds
+    its penalty before its backward; ``critic_updates`` counts 5."""
+    t = _wgan_trainer(monkeypatch)
+    pool = {"x": _pool()["x"][:4]}
+    with trace.recording() as rec:
+        t._run_epoch("TRAIN", pool, np.array([[0, 1]]))
+    spans = rec.spans()
+    (step,) = [k for k, s in enumerate(spans) if s["name"] == "train.step"]
+    subs = [k for k, s in enumerate(spans) if s["name"] == "train.substep"]
+    assert all(spans[k]["parent"] == step for k in subs)
+    critic = ["train.forward", "train.penalty", "train.backward",
+              "train.optimizer"]
+    assert _substeps(spans) == [
+        ("gen", ["train.forward", "train.backward", "train.optimizer"])] + [
+        ("disc", critic)] * 5
+    for k in subs:
+        kids = [s for s in spans if s["parent"] == k]
+        ends = [t_ for s in kids for t_ in (s["start_ns"], s["end_ns"])]
+        assert ends == sorted(ends)
+    assert rec.counters()["critic_updates"] == 5
+
+
+def test_an_encoder_step_records_one_substep_and_no_penalty(monkeypatch):
+    t = _wgan_trainer(monkeypatch, epoch=1)  # numEpochs 1: the izif phase
+    pool = {"x": _pool()["x"][:4]}
+    with trace.recording() as rec:
+        t._run_epoch("TRAIN", pool, np.array([[0, 1]]))
+    assert _substeps(rec.spans()) == [
+        ("enc", ["train.forward", "train.backward", "train.optimizer"])]
+    assert "critic_updates" not in rec.counters()
+    assert not [s for s in rec.spans() if s["name"] == "train.penalty"]
+
+
+def test_recording_changes_no_wgan_step(monkeypatch):
+    """A WGAN step's losses and parameters with a recording open equal
+    those without, bit for bit."""
+    pool = {"x": _pool()["x"][:4]}
+    on, off = _wgan_trainer(monkeypatch), _wgan_trainer(monkeypatch)
+    with trace.recording():
+        got = on._run_epoch("TRAIN", pool, np.array([[0, 1], [2, 3]]))
+    want = off._run_epoch("TRAIN", pool, np.array([[0, 1], [2, 3]]))
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for (name, a), b in zip(on.model.state_dict().items(),
+                            off.model.state_dict().values()):
+        assert torch.equal(a, b), name

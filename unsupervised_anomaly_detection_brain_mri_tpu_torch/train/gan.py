@@ -47,6 +47,10 @@ reference's slope over axis 1 only (H of NHWC).  Early stopping watches
 Checkpoints hold the optimizer states (``OptimizerGroup``) and the ``gp``
 and ``sample`` generators beside the others, so resume continues bit for
 bit.
+
+Tracing: each substep is a ``train.substep`` span holding its forward,
+penalty, backward and optimizer spans, and each critic substep counts one
+``critic_updates`` (``utils/trace.py`` describes them).
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.base import (
 from unsupervised_anomaly_detection_brain_mri_tpu_torch.train.state import (
     gan_adam,
 )
+from unsupervised_anomaly_detection_brain_mri_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -164,10 +169,20 @@ class AdversarialTrainerBase(BaseTrainer):
         """WGAN critic loss + the gradient penalty at the image
         interpolate ``outputs[interpolate]`` (NHWC; slopes over axis 1)."""
         x_hat = outputs[interpolate].detach().requires_grad_(True)
-        (ddx,) = torch.autograd.grad(self.model.discriminate(x_hat)[1].sum(),
-                                     x_hat, create_graph=True)
-        return (L.wgan_disc_loss(outputs["d"], outputs["d_"])
-                + L.wgan_gp_penalty_from_grads(ddx, self.config.scale))
+        with trace.span("train.penalty"):
+            (ddx,) = torch.autograd.grad(
+                self.model.discriminate(x_hat)[1].sum(), x_hat,
+                create_graph=True)
+            penalty = L.wgan_gp_penalty_from_grads(ddx, self.config.scale)
+        return L.wgan_disc_loss(outputs["d"], outputs["d_"]) + penalty
+
+    @staticmethod
+    def substep(group: str):
+        """The ``train.substep`` span of one update of ``group``; a critic
+        substep also counts one ``critic_updates``."""
+        if group == "disc":
+            trace.count("critic_updates")
+        return trace.span("train.substep", group=group)
 
     @contextlib.contextmanager
     def only(self, group: str) -> Iterator[None]:
@@ -190,14 +205,16 @@ class AdversarialTrainerBase(BaseTrainer):
         ranks before the step (``autograd.grad`` bypasses DDP's hooks)."""
         opt = self.optimizer[group]
         params = [p for g in opt.param_groups for p in g["params"]]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        if self.data_parallel:
-            psum_mean_grads(self.mesh, params)
-        opt.step()
-        for p in params:
-            p.grad = None
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with trace.span("train.optimizer"):
+            for p, g in zip(params, grads):
+                p.grad = torch.zeros_like(p) if g is None else g
+            if self.data_parallel:
+                psum_mean_grads(self.mesh, params)
+            opt.step()
+            for p in params:
+                p.grad = None
 
 
 class AAE(AdversarialTrainerBase):
@@ -229,27 +246,36 @@ class AAE(AdversarialTrainerBase):
     def disc_loss(self, outputs) -> Tensor:
         """WGAN critic loss + the gradient penalty at ``z_hat``."""
         z_hat = outputs["z_hat"].detach().requires_grad_(True)
-        (ddx,) = torch.autograd.grad(self.model.discriminate(z_hat).sum(),
-                                     z_hat, create_graph=True)
-        return (L.wgan_disc_loss(outputs["d"], outputs["d_"])
-                + L.wgan_gp_penalty_from_grads(ddx, self.config.scale))
+        with trace.span("train.penalty"):
+            (ddx,) = torch.autograd.grad(self.model.discriminate(z_hat).sum(),
+                                         z_hat, create_graph=True)
+            penalty = L.wgan_gp_penalty_from_grads(ddx, self.config.scale)
+        return L.wgan_disc_loss(outputs["d"], outputs["d_"]) + penalty
 
     def train_step(self, batch) -> Dict[str, Tensor]:
         n = batch["x"].shape[0]
         for _ in range(self.ae_iters()):
-            losses = self.ae_loss(self.forward_train(batch, None), batch)
-            self.update("ae", losses["loss"])
+            with self.substep("ae"):
+                with trace.span("train.forward"):
+                    losses = self.ae_loss(self.forward_train(batch, None),
+                                          batch)
+                self.update("ae", losses["loss"])
         metrics = self._scalar_metrics(losses)
         disc_loss = torch.zeros((), device=self.device)
         with self.only("disc"):
             for _ in range(self.d_iters):
-                z = self.prior_z(n)
-                disc_loss = self.disc_loss(self.forward_train(batch, z))
-                self.update("disc", disc_loss)
+                with self.substep("disc"):
+                    with trace.span("train.forward"):
+                        z = self.prior_z(n)
+                        outputs = self.forward_train(batch, z)
+                    disc_loss = self.disc_loss(outputs)
+                    self.update("disc", disc_loss)
         metrics["disc_loss"] = disc_loss.detach()
-        with self.only("gen"):
-            outputs = self.forward_train(batch, None)
-            gen_loss = L.wgan_gen_loss(self.model.discriminate(outputs["z_"]))
+        with self.only("gen"), self.substep("gen"):
+            with trace.span("train.forward"):
+                outputs = self.forward_train(batch, None)
+                gen_loss = L.wgan_gen_loss(
+                    self.model.discriminate(outputs["z_"]))
             self.update("gen", gen_loss)
         metrics["gen_loss"] = gen_loss.detach()
         self.step += 1
@@ -296,22 +322,27 @@ class FAnoGAN(AdversarialTrainerBase):
 
     def train_step(self, batch) -> Dict[str, Tensor]:
         if self.encoder_phase(self.epoch):
-            with self.only("enc"):
-                losses = self.compute_losses(self.forward_train(batch), batch)
+            with self.only("enc"), self.substep("enc"):
+                with trace.span("train.forward"):
+                    losses = self.compute_losses(self.forward_train(batch),
+                                                 batch)
                 self.update("enc", losses["enc_loss"])
             self.step += 1
             return self._scalar_metrics(losses)
         n = batch["x"].shape[0]
-        with self.only("gen"):
-            outputs = self.forward_train(batch, self.prior_z(n))
-            gen_loss = L.wgan_gen_loss(outputs["d_"])
+        with self.only("gen"), self.substep("gen"):
+            with trace.span("train.forward"):
+                outputs = self.forward_train(batch, self.prior_z(n))
+                gen_loss = L.wgan_gen_loss(outputs["d_"])
             self.update("gen", gen_loss)
         disc_loss = torch.zeros((), device=self.device)
         with self.only("disc"):
             for _ in range(self.d_iters):
-                outputs = self.forward_train(batch, self.prior_z(n))
-                disc_loss = self.image_disc_loss(outputs, "x_hat")
-                self.update("disc", disc_loss)
+                with self.substep("disc"):
+                    with trace.span("train.forward"):
+                        outputs = self.forward_train(batch, self.prior_z(n))
+                    disc_loss = self.image_disc_loss(outputs, "x_hat")
+                    self.update("disc", disc_loss)
         self.step += 1
         return {"gen_loss": gen_loss.detach(), "disc_loss": disc_loss.detach(),
                 "reconstructionLoss": torch.zeros((), device=self.device)}
@@ -340,20 +371,24 @@ class AnoVAEGAN(AdversarialTrainerBase):
                 "enc_loss": rec_sum + self.config.kl_weight * torch.mean(kl)}
 
     def train_step(self, batch) -> Dict[str, Tensor]:
-        with self.only("vae"):
-            losses = self.compute_losses(self.forward_train(batch), batch)
+        with self.only("vae"), self.substep("vae"):
+            with trace.span("train.forward"):
+                losses = self.compute_losses(self.forward_train(batch), batch)
             self.update("vae", losses["enc_loss"])
         metrics = self._scalar_metrics(losses)
-        with self.only("gen"):
-            gen_loss = L.wgan_gen_loss(self.forward_train(batch)["d_"])
+        with self.only("gen"), self.substep("gen"):
+            with trace.span("train.forward"):
+                gen_loss = L.wgan_gen_loss(self.forward_train(batch)["d_"])
             self.update("gen", gen_loss)
         metrics["gen_loss"] = gen_loss.detach()
         disc_loss = torch.zeros((), device=self.device)
         with self.only("disc"):
             for _ in range(self.d_iters):
-                disc_loss = self.image_disc_loss(self.forward_train(batch),
-                                                 "x_hat_gp")
-                self.update("disc", disc_loss)
+                with self.substep("disc"):
+                    with trace.span("train.forward"):
+                        outputs = self.forward_train(batch)
+                    disc_loss = self.image_disc_loss(outputs, "x_hat_gp")
+                    self.update("disc", disc_loss)
         metrics["disc_loss"] = disc_loss.detach()
         self.step += 1
         return metrics

@@ -22,8 +22,19 @@ the spans beside the kernels they launch; without it (the default) the
 recording adds no event to a profile.  Spans are opened from one thread;
 one recording is open at a time.
 
-Names are dotted by layer (``train.*``, ``serve.*``).  Counters:
+Names are dotted by layer (``train.*``, ``serve.*``).  An adversarial
+trainer's step (``train/gan.py``) is a sequence of ``train.substep`` spans,
+one an update of one parameter group (attribute ``group``: ``gen``,
+``disc``, ``enc``, ``ae`` or ``vae``), each holding ``train.forward`` (the
+forward and the loss), for a critic ``train.penalty`` (the critic on the
+interpolate and its input gradient taken with ``create_graph``), then
+``train.backward`` (the group's ``autograd.grad``, for a critic the double
+backward through the penalty) and ``train.optimizer`` (the zero fill, the
+mesh's gradient mean and the step).  Counters:
 
+  * ``critic_updates``: the critic substeps (``group`` ``disc``) of the
+    adversarial trainers: 5 a ``fAnoGAN`` WGAN step, 0 in its encoder
+    phase;
   * ``host_syncs``: the points where the host waits for a CUDA device (a
     pageable host-to-device copy, a copy to the host, a tensor read as a
     Python number, a library call that reads a result back) in an epoch
